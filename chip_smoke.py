@@ -30,7 +30,30 @@ libraries at once, into ``build/repro_torch/``), and then
    their plain versions once more on the uniform graph's layouts (its
    262,144 row tiles exceed a CUDA grid's y limit), for BFS, PageRank and
    weighted PageRank at frontier densities 0.05 and 1.0.  Those
-   comparison launches are not counted.
+   comparison launches are not counted;
+4. drives the entry points of the four kernels off the graph main path,
+   each at the shapes the repository's configurations give it, with its
+   launch count set to 0 just before its phase's driving calls and read
+   just after (the comparison and timing launches that follow are not
+   counted):
+   - ``edge_reduce.ell_level_reduce`` on the SCALE-16 in-layout (int
+     ``n + 1``, float ``n + w``, a two-level lex with ``bests``, ``nonbot``
+     mode) and on the uniform graph's (int ``n + 1``), bitwise against its
+     plain version;
+   - ``ops.ell_softmax`` over both in-layouts with their masks, within
+     1e-6;
+   - ``ops.embedding_bag`` on one DLRM RM2 table (4,000,000 × 64,
+     ``configs/dlrm_rm2.py``) for 65,536 bags of K = 1 and K = 8, sum, mean
+     and weighted, and a bfloat16 table, bitwise;
+   - ``flash_attention.flash_attention`` at llama3.2-3B's attention shape
+     (24 heads, 8 KV heads, d_head 128, bfloat16, ``configs/
+     llama3_2_3b.py``) with S = T = 4096, causal and causal with chunk 1024,
+     and float32 at S = T = 1024: elementwise within one bfloat16 step
+     (2^-7 of the element) + 1e-4 in bfloat16 and 1e-5 + 1e-5 of the
+     element in float32 of its plain version;
+   each timed with CUDA events beside its plain version, its bound and,
+   where one PyTorch call computes the same function
+   (``F.embedding_bag``, ``F.scaled_dot_product_attention``), that call.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -49,10 +72,33 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+# Published dense peaks of one H100 SXM (NVIDIA data sheet): bfloat16 on
+# the tensor cores, float32 outside them.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCE = "src/repro_torch/csrc/edge_sweep.cuh"
+MAIN_KERNELS = ("pull", "push", "resolve")
+SLEEP_CYCLES = 4_000_000           # ~2 ms at the H100's 1.98 GHz boost clock
 REPLACES = {"pull": "src/repro/kernels/edge_reduce.py:165",
             "push": "src/repro/kernels/edge_reduce.py:367",
-            "resolve": "src/repro/kernels/edge_reduce.py:553"}
+            "resolve": "src/repro/kernels/edge_reduce.py:553",
+            "level": "src/repro/kernels/edge_reduce.py:648",
+            "softmax": "src/repro/kernels/segment_softmax.py:30",
+            "bag": "src/repro/kernels/embedding_bag.py:33",
+            "flash": "src/repro/kernels/flash_attention.py:34"}
+SOURCES = {"level": "src/repro_torch/csrc/edge_level.cuh",
+           "softmax": "src/repro_torch/csrc/segment_softmax.cu",
+           "bag": "src/repro_torch/csrc/embedding_bag.cu",
+           "flash": "src/repro_torch/csrc/flash_attention.cu"}
+# DLRM RM2's embedding tables (configs/dlrm_rm2.py) and llama3.2-3B's
+# attention (configs/llama3_2_3b.py).
+RM2_VOCAB, RM2_DIM, RM2_BAGS = 4_000_000, 64, 65_536
+LLAMA_HEADS, LLAMA_KV_HEADS, LLAMA_DHEAD = 24, 8, 128
+# Flash attention against its plain version, elementwise |Δ| <= atol +
+# rtol·|plain|.  Both compute in float32 and round the result once to the
+# output type, so in bfloat16 two results differ by at most one bfloat16
+# step of the element (2^-7 of it) plus the float32 difference of two
+# summation orders (atol); in float32 by that difference alone.
+FLASH_TOL = {"bfloat16": (2.0 ** -7, 1e-4), "float32": (1e-5, 1e-5)}
 
 # RM-XS targets from BENCH_pallas.json (direction_rows / resolution_rows of
 # rmat_graph(400, 3200, seed=11)): unweighted BFS iterations / push
@@ -92,19 +138,27 @@ def main(argv) -> int:
               "is false", file=sys.stderr)
         return 2
     torch.use_deterministic_algorithms(True)
+    # full float32 products in the plain versions and library calls
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.nn.functional as F
     from repro_torch.core import engine as TE
     from repro_torch.core import fusion as TF
     from repro_torch.core import usecases as TU
     from repro_torch.core.iterate import DTYPES, CompRuntime, comp_runtimes
     from repro_torch.core.fusion import Prim
-    from repro_torch.core.kernel_lang import expr_vars
+    from repro_torch.core.kernel_lang import FLT, INT, Bin, Lit, Var, \
+        expr_vars
     from repro_torch.core.synthesis import (pagerank_kernels,
                                             synthesize_round,
                                             weighted_pagerank_kernels)
     from repro_torch.graph import structure as TS
     from repro_torch.kernels import build
     from repro_torch.kernels import edge_reduce as ER
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops as KO
+    from repro_torch.kernels import segment_softmax as SS
 
     dev = torch.device("cuda")
     card = card_line()
@@ -115,7 +169,8 @@ def main(argv) -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     # ------------------------------------------------------------------
-    # Build every round's library at once (one nvcc each).
+    # Build every library at once (one nvcc each): the rounds', the level
+    # kernels' and the fixed kernels' (bag, softmax, flash).
     # ------------------------------------------------------------------
     progs = {name: TF.fuse(TU.ALL_SPECS[name]())
              for name in ("BFS", "SSSP", "WSP", "CC")}
@@ -134,12 +189,30 @@ def main(argv) -> int:
     rounds = {name: program_round(p) for name, p in progs.items()}
     rounds["PR"] = direct_round(pagerank_kernels(2))
     rounds["WPR"] = direct_round(weighted_pagerank_kernels(2))
+    inf = float("inf")
+    int_inf = 2 ** 30 - 1               # segment.INT_INF, the int32 min ⊥
+    p_hop = Bin("+", Var("n", INT), Lit(1, INT))          # BFS-like
+    p_dist = Bin("+", Var("n", FLT), Var("w", FLT))       # SSSP-like
+    p_wide = Bin("min", Var("n", FLT), Var("c", FLT))     # widest-path
+    # (name, op, P per level, state dtypes, identities, mode)
+    level_units = {
+        "int n+1": ("min", [p_hop], [torch.int32], [int_inf], "value"),
+        "float n+w": ("min", [p_dist], [torch.float32], [inf], "value"),
+        "lex level 0": ("max", [p_wide], [torch.float32], [-inf], "value"),
+        "lex level 1": ("min", [p_wide, p_dist],
+                        [torch.float32, torch.float32], [-inf, inf],
+                        "value"),
+        "nonbot": ("max", [p_hop], [torch.int32], [int_inf], "nonbot")}
     t0 = time.perf_counter()
-    sources = [r.source() for r in rounds.values()]
-    build.build_all(sources)
-    keys = [build.source_key(s) for s in sources]
-    builds = {name: round(build.BUILD_SECONDS.get(k, 0.0), 3)
-              for name, k in zip(rounds, keys)}
+    units = [("round", r.source()) for r in rounds.values()]
+    units += [("level", ER.level_source(ps, dts, ids, op, mode))
+              for op, ps, dts, ids, mode in level_units.values()]
+    units.append(("fixed", build.fixed_source()))
+    build.build_all(units)
+    names = [*rounds, *(f"level {k}" for k in level_units), "fixed"]
+    builds = {name: round(build.BUILD_SECONDS.get(build.source_key(u[1]),
+                                                  0.0), 3)
+              for name, u in zip(names, units)}
     record["build_s"] = builds
     log(f"build: {time.perf_counter() - t0:.1f} s wall, per library "
         f"{json.dumps(builds)}")
@@ -150,15 +223,23 @@ def main(argv) -> int:
     import numpy as np
 
     def bits(t):
-        return t.view(torch.int32) if t.dtype == torch.float32 else t
+        if t.dtype == torch.float32:
+            return t.view(torch.int32)
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
     def time_ms(fn, reps):
+        """Median device time of ``fn``'s work over ``reps`` runs, CUDA
+        events around each run.  The card first sleeps ~2 ms on the stream
+        so the run's launches are all queued behind it: the events then
+        measure the device's work, not the host's launch overhead (a host
+        part longer than the sleep still shows)."""
         fn()
         torch.cuda.synchronize()
         ts = []
         for _ in range(reps):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
             a.record()
             fn()
             b.record()
@@ -281,6 +362,155 @@ def main(argv) -> int:
         log("kernel case " + json.dumps(case))
         return case
 
+    # ------------------------------------------------------------------
+    # Phase 4 helpers: the four kernels off the graph main path.
+    # ------------------------------------------------------------------
+    counters = {"level": ER.LAUNCHES, "softmax": SS.LAUNCHES,
+                "bag": EB.LAUNCHES, "flash": FA.LAUNCHES}
+    entry_cases = {k: [] for k in counters}
+    phase_launches = dict.fromkeys(counters, 0)
+
+    def library_ms(fn, reps):
+        """One PyTorch call's time.  The call is only timed, never
+        compared, so it may take a nondeterministic implementation."""
+        torch.use_deterministic_algorithms(False)
+        try:
+            return time_ms(fn, reps)
+        finally:
+            torch.use_deterministic_algorithms(True)
+
+    def entry_case(kernel, label, drive, plain, tol, nbytes, ops=0.0,
+                   peak=None, library=None, reps=10, plain_reps=2,
+                   detail=None):
+        """One case of a phase-4 kernel.  Its launch count is set to 0 just
+        before the driving call and read just after; the result is held
+        against the plain version on the same inputs (bitwise when ``tol``
+        is None, else elementwise |Δ| <= atol + rtol·|plain| for ``tol`` =
+        (rtol, atol)); then kernel, plain version and library call are
+        timed.  The bound is the larger of ``nbytes`` over the memory rate
+        and ``ops`` over ``peak``."""
+        count = counters[kernel]
+        count[kernel] = 0
+        got = drive()
+        torch.cuda.synchronize()
+        launched = count[kernel]
+        if launched <= 0:
+            raise RuntimeError(f"the {kernel} kernel never launched in its "
+                               f"phase ({label})")
+        phase_launches[kernel] += launched
+        want = plain()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise RuntimeError(f"{kernel} {label}: {got.shape} {got.dtype} "
+                               f"vs plain {want.shape} {want.dtype}")
+        check = {}
+        if tol is None:
+            same = torch.equal(bits(got), bits(want))
+            err = 0.0 if same else float(
+                (got.double() - want.double()).abs().nan_to_num(inf).max())
+            if not same:
+                raise RuntimeError(f"{kernel} kernel disagrees with its plain "
+                                   f"version ({label}): max |Δ| {err}")
+        else:
+            rtol, atol = tol
+            diff = (got.float() - want.float()).abs()
+            mag = want.float().abs()
+            err = float(diff.max())
+            # the worst |Δ| as a share of its element's limit, and of the
+            # median size of the non-zero outputs (a masked softmax slot is
+            # exactly 0)
+            worst = float((diff / (atol + rtol * mag)).max())
+            nonzero = mag[mag > 0]
+            check = {"worst_over_limit": worst, "err_over_median":
+                     err / float(nonzero.median()) if nonzero.numel()
+                     else None}
+            del nonzero
+            if not bool(torch.isfinite(got).all()) or not worst <= 1.0:
+                raise RuntimeError(
+                    f"{kernel} kernel disagrees with its plain version "
+                    f"({label}): max |Δ| {err}, {worst} times its limit "
+                    f"{atol} + {rtol}·|plain|")
+            del diff, mag
+        del got, want
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / peak * 1e3 if peak else 0.0
+        case = {"case": label, "launches": launched, "max_abs_err": err,
+                "tolerance": "bitwise" if tol is None
+                else {"rtol": tol[0], "atol": tol[1]}, **check,
+                "ms": time_ms(drive, reps),
+                "plain_ms": time_ms(plain, plain_reps),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "ops": ops,
+                "library_ms": None if library is None
+                else library_ms(library, reps), **(detail or {})}
+        log(f"{kernel} case " + json.dumps(case))
+        entry_cases[kernel].append(case)
+        return case
+
+    def level_cases(label, g, names):
+        """ell_level_reduce on ``g``'s in-layout, every source active, a
+        quarter of each state ⊥; bitwise against the plain version."""
+        e = TS.blocked_ell_cached(g, direction="in")
+        n_pad, width = e.nbrs.shape
+        n_tiles = int((e.tile_nnz > 0).sum())
+        rng = np.random.default_rng(77)
+        active = torch.ones(n_pad, dtype=torch.int32, device=dev)
+        ones = torch.ones(n_pad, dtype=torch.float32, device=dev)
+
+        def state(values, ident):
+            values[rng.random(n_pad) < 0.25] = ident
+            return torch.from_numpy(values).to(dev)
+
+        s_int = state(rng.integers(0, 50, n_pad).astype(np.int32), int_inf)
+        s_dist = state(rng.uniform(0.5, 9.0, n_pad).astype(np.float32), inf)
+        # integral widths, so the first lex level has ties to break
+        s_wide = state(rng.integers(0, 16, n_pad).astype(np.float32), -inf)
+        states = {"int n+1": [s_int], "float n+w": [s_dist],
+                  "lex level 0": [s_wide], "lex level 1": [s_wide, s_dist],
+                  "nonbot": [s_int]}
+        best0 = None
+        for name in names:
+            op, ps, _dts, ids, mode = level_units[name]
+            st = states[name]
+            bests = [best0] if name == "lex level 1" else []
+            used = ps if mode == "value" else ps[:-1]
+            reads = frozenset().union(*map(expr_vars, used))
+            # The least bytes, as the pull bound counts them: every tile's
+            # count (4 B); of each non-empty tile, each slot's mask (1 B),
+            # source index (4 B) and the weight and capacity where P reads
+            # them; the vectors read once (frontier, states, bests, the
+            # degrees P reads) and the output written once.
+            slot = 1 + 4 + 4 * ("w" in reads) + 4 * ("c" in reads)
+            vec = 1 + len(st) + len(bests) + ("outdeg" in reads) + \
+                ("wdeg" in reads) + 1
+            nbytes = (e.tile_nnz.numel() * 4
+                      + n_tiles * e.block_v * e.block_e * slot
+                      + n_pad * 4 * vec)
+            entry_case(
+                "level", f"{label} {name}",
+                lambda: ER.ell_level_reduce(e, op, ps, st, ids, active, ones,
+                                            bests=bests, mode=mode,
+                                            wdeg=ones),
+                lambda: ER._level_plain(op, ps, st, ids, e.nbrs, e.weight,
+                                        e.capacity, e.mask, active, ones,
+                                        ones, bests, mode, float(e.n)),
+                None, nbytes, reps=10, plain_reps=1,
+                detail={"tiles": n_tiles, "tiles_all": e.tile_nnz.numel()})
+            if name == "lex level 0":
+                best0 = ER.ell_level_reduce(e, op, ps, st, ids, active, ones)
+
+    def softmax_case(label, g):
+        """ell_softmax over ``g``'s in-layout with its real mask."""
+        e = TS.blocked_ell_cached(g, direction="in")
+        gen = torch.Generator(device=dev).manual_seed(30)
+        scores = torch.randn(tuple(e.mask.shape), generator=gen,
+                             device=dev).mul_(5.0)
+        # weights lie in [0, 1]: 1e-6 is a few float32 steps at 1
+        entry_case("softmax", label, lambda: KO.ell_softmax(scores, e.mask),
+                   lambda: SS._softmax_plain(scores, e.mask), (0.0, 1e-6),
+                   scores.numel() * (4 + 1 + 4), reps=10, plain_reps=1)
+        del scores
+
     n16, e16 = 65536, 1048576
     t0 = time.perf_counter()
     g16 = TS.rmat_graph(n16, e16, seed=16, device=dev)
@@ -296,6 +526,9 @@ def main(argv) -> int:
     del ein, eout
     kernel_cases("rmat16", g16, ("BFS", "WSP", "WPR"), 20, 3)
     record["kernel_cases"] = cases
+    level_cases("rmat16", g16, ("int n+1", "float n+w", "lex level 0",
+                                "lex level 1", "nonbot"))
+    softmax_case("rmat16 in-layout", g16)
 
     # ------------------------------------------------------------------
     # Phase 2: RM-XS counters and a small query against the path oracle.
@@ -408,11 +641,11 @@ def main(argv) -> int:
 
     # The main path's launch counts: set to 0 just before each graph's
     # queries, read just after, and summed.
-    main_launches = dict.fromkeys(ER.LAUNCHES, 0)
+    main_launches = dict.fromkeys(MAIN_KERNELS, 0)
 
     def add_launches():
-        for kname, cnt in ER.LAUNCHES.items():
-            main_launches[kname] += cnt
+        for kname in MAIN_KERNELS:
+            main_launches[kname] += ER.LAUNCHES[kname]
 
     setup("rmat16", g16)
     ER.reset_launches()
@@ -477,6 +710,84 @@ def main(argv) -> int:
         if cnt <= 0:
             raise RuntimeError(f"the {kname} kernel never launched on the "
                                "main path")
+    level_cases("uniform21", gu, ("int n+1",))
+    softmax_case("uniform21 in-layout", gu)
+    del gu
+    TE.clear_program_caches()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
+    # Phase 4 (continued): the embedding bag and flash attention.
+    # ------------------------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(40)
+    table = torch.randn((RM2_VOCAB, RM2_DIM), generator=gen, device=dev)
+    tables = {"float32": table, "bfloat16": table.to(torch.bfloat16)}
+    rng = np.random.default_rng(41)
+    host_idx = {k: rng.integers(0, RM2_VOCAB, (RM2_BAGS, k)).astype(np.int32)
+                for k in (1, 8)}
+    bag_idx = {k: torch.from_numpy(a).to(dev) for k, a in host_idx.items()}
+    rows_read = {k: int(np.unique(a).size) for k, a in host_idx.items()}
+    bag_w = torch.from_numpy(rng.normal(size=(RM2_BAGS, 8))
+                             .astype(np.float32)).to(dev)
+    for k, mode, weighted, tname in ((1, "sum", False, "float32"),
+                                     (1, "mean", False, "float32"),
+                                     (8, "sum", False, "float32"),
+                                     (8, "mean", False, "float32"),
+                                     (8, "sum", True, "float32"),
+                                     (8, "mean", True, "float32"),
+                                     (8, "sum", False, "bfloat16")):
+        tab, idx = tables[tname], bag_idx[k]
+        w = bag_w if weighted else None
+        elem = tab.element_size()
+        nbytes = (rows_read[k] * RM2_DIM * elem
+                  + idx.numel() * 4 + (w.numel() * 4 if weighted else 0)
+                  + RM2_BAGS * RM2_DIM * elem)
+        # F.embedding_bag takes per-sample weights in sum mode only
+        lib = None if weighted and mode == "mean" else (
+            lambda tab=tab, idx=idx, w=w, mode=mode: F.embedding_bag(
+                idx, tab, mode=mode, per_sample_weights=w))
+        entry_case("bag", f"{tname} table K={k} {mode}"
+                   + (" weighted" if weighted else ""),
+                   lambda tab=tab, idx=idx, w=w, mode=mode: KO.embedding_bag(
+                       tab, idx, weights=w, mode=mode),
+                   lambda tab=tab, idx=idx, w=w, mode=mode: EB._bag_plain(
+                       tab, idx, w, mode),
+                   None, nbytes, library=lib, reps=20, plain_reps=3)
+    del table, tables, bag_idx, bag_w
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(50)
+    for s_len, chunk, dtype in ((4096, None, torch.bfloat16),
+                                (4096, 1024, torch.bfloat16),
+                                (1024, None, torch.float32)):
+        q = torch.randn((1, LLAMA_HEADS, s_len, LLAMA_DHEAD), generator=gen,
+                        device=dev).to(dtype)
+        k, v = (torch.randn((1, LLAMA_KV_HEADS, s_len, LLAMA_DHEAD),
+                            generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        vis = FA.attention_mask(s_len, s_len, True, chunk, dev)
+        pairs = int(vis.sum())
+        ops = 4.0 * LLAMA_HEADS * pairs * LLAMA_DHEAD
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        if chunk is None:
+            lib = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+        else:
+            lib = (lambda q=q, k=k, v=v, vis=vis:
+                   F.scaled_dot_product_attention(q, k, v, attn_mask=vis,
+                                                  enable_gqa=True))
+        tname = str(dtype).removeprefix("torch.")
+        entry_case("flash", f"llama3.2-3B {tname} S=T={s_len} causal"
+                   + (f" chunk={chunk}" if chunk else ""),
+                   lambda q=q, k=k, v=v, chunk=chunk: FA.flash_attention(
+                       q, k, v, causal=True, chunk=chunk),
+                   lambda q=q, k=k, v=v, chunk=chunk: FA._flash_plain(
+                       q, k, v, True, chunk),
+                   FLASH_TOL[tname], nbytes, ops,
+                   PEAK_FLOPS[tname], library=lib, reps=10, plain_reps=2)
+        del q, k, v, vis
+    log(f"phase-4 launches: {json.dumps(phase_launches)}")
+    record["entry_cases"] = entry_cases
+    record["phase_launches"] = phase_launches
     record["queries"] = queries
     record["launches"] = launches
     record["profiles"] = profiles
@@ -498,6 +809,19 @@ def main(argv) -> int:
             "library_ms": None,
             "case": "weighted PageRank round, all sources active, "
                     f"rmat_graph({n16}, {e16}, seed=16)"})
+    for kname, label in (("level", "rmat16 float n+w"),
+                         ("softmax", "rmat16 in-layout"),
+                         ("bag", "float32 table K=1 sum"),
+                         ("flash", "llama3.2-3B bfloat16 S=T=4096 causal")):
+        c = [c for c in entry_cases[kname] if c["case"] == label][0]
+        kernels.append({
+            "name": f"{kname}_kernel", "route": "cuda",
+            "source": SOURCES[kname], "replaces": REPLACES[kname],
+            "launches": phase_launches[kname],
+            **{key: c[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+            "case": label})
     record["kernels"] = kernels
     try:
         out_dir.mkdir(exist_ok=True)

@@ -13,7 +13,9 @@ memoizing candidate pools per type and caching results per (F, R).
 Code generation: ``emit_cuda_round`` prints the P expressions of one fused
 round as CUDA ``__device__`` functions in one translation unit that
 includes ``csrc/edge_sweep.cuh`` and instantiates its three sweep kernels
-(pull, push, sorted push resolution) for the round.
+(pull, push, sorted push resolution) for the round; ``emit_cuda_level``
+prints the P expressions of one ``ell_level_reduce`` call into a unit that
+instantiates ``csrc/edge_level.cuh``'s level kernel.
 """
 from __future__ import annotations
 
@@ -266,6 +268,54 @@ def _word(val, is_float: bool) -> str:
     return f"0x{int(arr.view(np.uint32)):08x}u"
 
 
+def _switch(name, rtype, items) -> str:
+    cases = "".join(f"      case {k}: return {v};\n"
+                    for k, v in enumerate(items))
+    return (f"  static __device__ __forceinline__ {rtype} {name}(int k) "
+            f"{{\n    switch (k) {{\n{cases}      default: return 0;\n"
+            f"    }}\n  }}\n")
+
+
+def _p_members(p_exprs, dtypes, idents, reads) -> list:
+    """The members every generated struct shares: ``NC``, the ``READS_*``
+    flags (the kernels load no other per-edge input), the per-component
+    float flag and identity, and one ``P`` per component printed by
+    ``emit_cuda``."""
+    is_f = [d == "float" for d in dtypes]
+    p_cases = []
+    for k, (expr, dt) in enumerate(zip(p_exprs, dtypes)):
+        ty = "float" if dt == "float" else "int"
+        code, ety = emit_cuda(expr, _env_types(dt))
+        if ety != ty:
+            code = f"(({ty})({code}))"
+        n_load = "as_f(nw)" if ty == "float" else "as_i(nw)"
+        p_cases.append(
+            f"      case {k}: {{\n"
+            f"        const {ty} n = {n_load};\n"
+            f"        return w_of(({ty})({code}));\n"
+            f"      }}\n")
+    return [
+        f"  static constexpr int NC = {len(p_exprs)};\n",
+        *(f"  static constexpr bool READS_{name.upper()} = "
+          f"{'true' if name in reads else 'false'};\n"
+          for name in ("w", "c", "edst", "outdeg", "wdeg")),
+        _switch("comp_float", "bool",
+                ["true" if f else "false" for f in is_f]),
+        _switch("ident", "uint32_t",
+                [_word(i, f) for i, f in zip(idents, is_f)]),
+        "  static __device__ __forceinline__ uint32_t P(int k, const Env& e,\n"
+        "                                               uint32_t nw) {\n"
+        "    const float w = e.w, c = e.c, outdeg = e.outdeg, wdeg = e.wdeg;\n"
+        "    const float nv = e.nv;\n"
+        "    const int esrc = e.esrc, edst = e.edst;\n"
+        "    (void)w; (void)c; (void)outdeg; (void)wdeg; (void)nv;\n"
+        "    (void)esrc; (void)edst;\n"
+        "    switch (k) {\n",
+        *p_cases,
+        "      default: return 0u;\n    }\n  }\n",
+    ]
+
+
 def emit_cuda_round(p_exprs, dtypes, idents, plan_specs) -> str:
     """One CUDA translation unit for one fused round.
 
@@ -282,60 +332,59 @@ def emit_cuda_round(p_exprs, dtypes, idents, plan_specs) -> str:
     ``emit_cuda`` — and instantiates the three kernel templates of
     ``edge_sweep.cuh`` for it behind the plain C entry points
     ``grafs_pull``, ``grafs_push`` and ``grafs_resolve``."""
-    nc = len(p_exprs)
     reads = frozenset().union(*map(expr_vars, p_exprs))
     levels = [(pos, op, li == 0, li == len(spec) - 1)
               for spec in plan_specs for li, (pos, op) in enumerate(spec)]
-    is_f = [d == "float" for d in dtypes]
-
-    def switch(name, rtype, items):
-        cases = "".join(f"      case {k}: return {v};\n"
-                        for k, v in enumerate(items))
-        return (f"  static __device__ __forceinline__ {rtype} {name}(int k) "
-                f"{{\n    switch (k) {{\n{cases}      default: return 0;\n"
-                f"    }}\n  }}\n")
-
-    p_cases = []
-    for k, (expr, dt) in enumerate(zip(p_exprs, dtypes)):
-        ty = "float" if dt == "float" else "int"
-        code, ety = emit_cuda(expr, _env_types(dt))
-        if ety != ty:
-            code = f"(({ty})({code}))"
-        n_load = "as_f(nw)" if ty == "float" else "as_i(nw)"
-        p_cases.append(
-            f"      case {k}: {{\n"
-            f"        const {ty} n = {n_load};\n"
-            f"        return w_of(({ty})({code}));\n"
-            f"      }}\n")
     src = [
         "// Generated by repro_torch.core.synthesis.emit_cuda_round.\n",
         '#include "edge_sweep.cuh"\n\nusing namespace grafs;\n\n',
         "struct Round {\n",
-        f"  static constexpr int NC = {nc};\n",
         f"  static constexpr int NLEV = {len(levels)};\n",
-        *(f"  static constexpr bool READS_{name.upper()} = "
-          f"{'true' if name in reads else 'false'};\n"
-          for name in ("w", "c", "edst", "outdeg", "wdeg")),
-        switch("comp_float", "bool",
-               ["true" if f else "false" for f in is_f]),
-        switch("ident", "uint32_t",
-               [_word(i, f) for i, f in zip(idents, is_f)]),
-        switch("lev_pos", "int", [str(lv[0]) for lv in levels]),
-        switch("lev_op", "int", [_OP_CODE[lv[1]] for lv in levels]),
-        switch("lev_first", "bool",
-               ["true" if lv[2] else "false" for lv in levels]),
-        switch("lev_last", "bool",
-               ["true" if lv[3] else "false" for lv in levels]),
-        "  static __device__ __forceinline__ uint32_t P(int k, const Env& e,\n"
-        "                                               uint32_t nw) {\n"
-        "    const float w = e.w, c = e.c, outdeg = e.outdeg, wdeg = e.wdeg;\n"
-        "    const float nv = e.nv;\n"
-        "    const int esrc = e.esrc, edst = e.edst;\n"
-        "    (void)w; (void)c; (void)outdeg; (void)wdeg; (void)nv;\n"
-        "    (void)esrc; (void)edst;\n"
-        "    switch (k) {\n",
-        *p_cases,
-        "      default: return 0u;\n    }\n  }\n};\n\n",
+        _switch("lev_pos", "int", [str(lv[0]) for lv in levels]),
+        _switch("lev_op", "int", [_OP_CODE[lv[1]] for lv in levels]),
+        _switch("lev_first", "bool",
+                ["true" if lv[2] else "false" for lv in levels]),
+        _switch("lev_last", "bool",
+                ["true" if lv[3] else "false" for lv in levels]),
+        *_p_members(p_exprs, dtypes, idents, reads),
+        "};\n\n",
         "GRAFS_DEFINE_ENTRY_POINTS(Round)\n",
+    ]
+    return "".join(src)
+
+
+def emit_cuda_level(p_exprs, dtypes, idents, op: str, mode: str) -> str:
+    """One CUDA translation unit for ``edge_reduce.ell_level_reduce``.
+
+    ``p_exprs``/``dtypes``/``idents`` describe the levels, priors first and
+    the reduced level last: each P as an ``Expr``, its state type
+    (``"int"``/``"float"``) and its identity (= ⊥).  ``op`` is the reduced
+    level's kernel monoid (boolean monoids already mapped to int32
+    max/min); ``mode`` is ``"value"`` (reduce the P values) or
+    ``"nonbot"`` (reduce "state is not ⊥" as int32 max).  The unit defines
+    ``struct Level`` and instantiates ``edge_level.cuh``'s kernel behind
+    the plain C entry point ``grafs_level``.  In ``nonbot`` mode the last
+    P is never evaluated, so its inputs are not loaded."""
+    used = p_exprs if mode == "value" else p_exprs[:-1]
+    reads = frozenset().union(*map(expr_vars, used))
+    if mode == "value":
+        out_float = dtypes[-1] == "float"
+        out_ident = _word(idents[-1], out_float)
+        out_op = _OP_CODE[op]
+    else:
+        out_float, out_ident, out_op = False, _word(0, False), "OP_MAX"
+    src = [
+        "// Generated by repro_torch.core.synthesis.emit_cuda_level.\n",
+        '#include "edge_level.cuh"\n\nusing namespace grafs;\n\n',
+        "struct Level {\n",
+        f"  static constexpr int OP = {out_op};\n",
+        f"  static constexpr bool NONBOT = "
+        f"{'true' if mode == 'nonbot' else 'false'};\n",
+        f"  static constexpr bool OUT_FLOAT = "
+        f"{'true' if out_float else 'false'};\n",
+        f"  static constexpr uint32_t OUT_IDENT = {out_ident};\n",
+        *_p_members(p_exprs, dtypes, idents, reads),
+        "};\n\n",
+        "GRAFS_DEFINE_LEVEL_ENTRY(Level)\n",
     ]
     return "".join(src)

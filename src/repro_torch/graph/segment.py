@@ -107,3 +107,12 @@ def combine(op: str, a, b):
     if op == "prod":
         return a * b
     raise ValueError(f"unknown reduction {op}")
+
+
+def segment_softmax(scores, segment_ids, num_segments: int):
+    """Numerically-stable per-segment softmax (GAT edge attention)."""
+    ids = segment_ids.long()
+    smax = segment_reduce("max", scores, segment_ids, num_segments)
+    ex = torch.exp(scores - smax[ids])
+    denom = segment_reduce("sum", ex, segment_ids, num_segments)
+    return ex / denom[ids].clamp(min=1e-30)

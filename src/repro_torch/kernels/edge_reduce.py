@@ -16,6 +16,13 @@ instantiated per fused round from the round's synthesized P expressions by
                     ``_resolve_kernel``): gather candidates through ``in2out``
                     inside the tile skip, then the pull sweep's lex chain.
 
+``ell_level_reduce`` (replaces ``_level_kernel``) is the per-level reference
+sweep outside the main path: one lex level per launch into a [n_pad]
+vector, its kernel generated per (P expressions, monoid, mode) by
+``synthesis.emit_cuda_level`` from ``csrc/edge_level.cuh``.  The kernel
+skips the tiles that the layout's ``tile_nnz`` counts empty; the plain
+version walks every tile, and the two agree bitwise all the same.
+
 Each wrapper launches its kernel for CUDA tensors (checking device, dtype,
 shape, contiguity and the launch status) and counts the launch in
 ``LAUNCHES``; for CPU tensors it runs the kernel's plain PyTorch version,
@@ -38,6 +45,9 @@ import torch
 
 from repro_torch.core.iterate import cast_like
 from repro_torch.graph import segment
+from repro_torch.kernels.launch import check as _check
+from repro_torch.kernels.launch import raise_on as _raise_on
+from repro_torch.kernels.launch import stream as _stream
 
 BLOCK_V = 8
 BLOCK_E = 128
@@ -49,9 +59,9 @@ _PLAIN_CHUNK = 1 << 24           # slots per plain-version chunk (memory cap)
 # boolean monoids run as int32 min/max inside the kernels
 _INT_OP = {"or": "max", "and": "min"}
 
-# Runtime launch counts of the three kernels: each wrapper adds one where it
+# Runtime launch counts of the four kernels: each wrapper adds one where it
 # launches its kernel on the card, and nowhere else.
-LAUNCHES = {"pull": 0, "push": 0, "resolve": 0}
+LAUNCHES = {"pull": 0, "push": 0, "resolve": 0, "level": 0}
 
 
 def reset_launches() -> None:
@@ -190,20 +200,6 @@ def _ptrs(tensors):
     return arr
 
 
-def _check(name: str, t, dtype, shape=None):
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
 def _check_layout(rect, tile_act):
     n_pad, width = rect.shape
     if n_pad % BLOCK_V or width % BLOCK_E:
@@ -213,16 +209,6 @@ def _check_layout(rect, tile_act):
         raise ValueError(f"layout {n_pad}×{width} overflows int32 indexing")
     _check("tile_act", tile_act, torch.int32,
            (n_pad // BLOCK_V, width // BLOCK_E))
-
-
-def _raise_on(status: int, kernel: str):
-    if status != 0:
-        raise RuntimeError(f"CUDA {kernel} kernel launch failed: "
-                           f"cudaError {status}")
-
-
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 # ---------------------------------------------------------------------------
@@ -411,6 +397,149 @@ def _resolve_plain(rnd, tile_act, valid, in2out, cands):
                   for pos, _op in spec]
         parts.append([torch.where(live, o, i) for o, i in zip(outs, idents)])
     return [torch.cat(cols) for cols in zip(*parts)]
+
+
+# ---------------------------------------------------------------------------
+# One lex level per launch (replaces edge_reduce.py::_level_kernel).
+# ---------------------------------------------------------------------------
+
+_LEVEL_SOURCES: dict = {}        # (exprs, dtypes, idents, op, mode) → unit
+
+
+def level_source(p_exprs, dtypes, idents, op: str, mode: str) -> str:
+    """The generated CUDA unit of one level kernel (memoized)."""
+    from repro_torch.core.synthesis import emit_cuda_level
+    names = ["float" if d == torch.float32 else "int" for d in dtypes]
+    key = (tuple(map(str, p_exprs)), tuple(names), tuple(map(repr, idents)),
+           op, mode)
+    if key not in _LEVEL_SOURCES:
+        _LEVEL_SOURCES[key] = emit_cuda_level(p_exprs, names, idents, op,
+                                              mode)
+    return _LEVEL_SOURCES[key]
+
+
+def ell_level_reduce(ell, op: str, p_exprs, states, idents, active, outdeg,
+                     bests=(), mode: str = "value", wdeg=None):
+    """Reduce one lex level over the blocked-ELL edges.
+
+    ell       BlockedELL pull layout (``structure.to_blocked_ell``)
+    op        monoid of the level being reduced
+    p_exprs   propagation functions as ``kernel_lang.Expr``, one per level
+              (priors first)
+    states    [n_pad] per-vertex value vectors, one per level
+    idents    reduction identities (= ⊥ sentinels), one per level
+    active    [n_pad] frontier (bool or int); inactive sources contribute ⊥
+    bests     [n_pad] best values of the PRIOR levels (len = len(states)-1)
+    mode      "value" (reduce P values) | "nonbot" (int32 max of "the
+              source's state is not ⊥")
+    wdeg      [n_pad] weighted out-degrees (ones when None)
+
+    Returns the [n_pad] per-vertex reduction: the last state's dtype in
+    ``value`` mode, int32 in ``nonbot`` mode.  The layout may be tiled at
+    any multiple of (8, 128); the kernel walks it in (8 × 128) tiles and
+    skips those whose layout tile ``ell.tile_nnz`` counts empty."""
+    n_levels = len(states)
+    if n_levels == 0 or len(p_exprs) != n_levels or \
+            len(idents) != n_levels or len(bests) != n_levels - 1:
+        raise ValueError(f"{n_levels} states need as many P expressions "
+                         f"and identities and {n_levels - 1} bests; got "
+                         f"{len(p_exprs)}, {len(idents)} and {len(bests)}")
+    if mode not in ("value", "nonbot"):
+        raise ValueError(f"mode must be 'value' or 'nonbot', got {mode!r}")
+    kop = _INT_OP.get(op, op) if mode == "value" else "max"
+    if kop not in ("min", "max", "sum", "prod"):
+        raise ValueError(f"unknown reduction {op!r}")
+    dtypes = [s.dtype for s in states]
+    idents = [_scalar(i, dt) for i, dt in zip(idents, dtypes)]
+    srcs = ell.srcs
+    n_pad, width = srcs.shape
+    if wdeg is None:
+        wdeg = torch.ones_like(outdeg)
+    active = active.to(torch.int32)
+    nv = float(ell.n)
+    if not srcs.is_cuda:
+        return _level_plain(kop, p_exprs, states, idents, srcs, ell.weight,
+                            ell.capacity, ell.mask, active, outdeg, wdeg,
+                            bests, mode, nv)
+    bv, be = ell.block_v, ell.block_e
+    if bv % BLOCK_V or be % BLOCK_E or n_pad % bv or width % be:
+        raise ValueError(f"layout {n_pad}×{width} in ({bv}, {be}) tiles is "
+                         f"not a whole number of ({BLOCK_V}, {BLOCK_E}) "
+                         f"tiles")
+    if n_levels > _MAX_PTRS:
+        raise ValueError(f"{n_levels} levels exceed the kernel's {_MAX_PTRS}")
+    _check("tile_nnz", ell.tile_nnz, torch.int32, (n_pad // bv, width // be))
+    for name, t, dt in (("srcs", srcs, torch.int32),
+                        ("weight", ell.weight, torch.float32),
+                        ("capacity", ell.capacity, torch.float32),
+                        ("mask", ell.mask, torch.bool)):
+        _check(name, t, dt, (n_pad, width))
+    _check("active", active, torch.int32, (n_pad,))
+    _check("outdeg", outdeg, torch.float32, (n_pad,))
+    _check("wdeg", wdeg, torch.float32, (n_pad,))
+    for k, (st, dt) in enumerate(zip(states, dtypes)):
+        if dt not in (torch.float32, torch.int32):
+            raise ValueError(f"state[{k}] must be float32 or int32, got {dt}")
+        _check(f"state[{k}]", st, dt, (n_pad,))
+    for k, (b, dt) in enumerate(zip(bests, dtypes)):
+        _check(f"bests[{k}]", b, dt, (n_pad,))
+    from repro_torch.kernels import build
+    lib = build.level_library(level_source(p_exprs, dtypes, idents, kop,
+                                            mode))
+    out_dtype = dtypes[-1] if mode == "value" else torch.int32
+    out = torch.empty((n_pad,), dtype=out_dtype, device=srcs.device)
+    status = lib.grafs_level(
+        ell.tile_nnz.data_ptr(), srcs.data_ptr(), ell.weight.data_ptr(),
+        ell.capacity.data_ptr(), ell.mask.data_ptr(), active.data_ptr(),
+        outdeg.data_ptr(), wdeg.data_ptr(), _ptrs(states), _ptrs(bests),
+        out.data_ptr(), n_pad // BLOCK_V, width, bv, be, nv, _stream(srcs))
+    _raise_on(status, "level")
+    LAUNCHES["level"] += 1
+    return out
+
+
+def _level_plain(kop, p_exprs, states, idents, srcs, weight, capacity, mask,
+                 active, outdeg, wdeg, bests, mode, nv):
+    """The level kernel's arithmetic in torch: per 128-slot tile the lanes'
+    4-slot folds and the halving tree (``_tile_reduce``), then the tiles
+    combined in order into a running value that starts at the identity."""
+    from repro_torch.core.kernel_lang import compile_expr
+    p_fns = [compile_expr(e) for e in p_exprs]
+    n_pad, width = srcs.shape
+    last = len(states) - 1
+    if mode == "value":
+        out_dtype, out_ident = states[last].dtype, idents[last]
+    else:
+        out_dtype, out_ident = torch.int32, 0
+    out = torch.full((n_pad,), out_ident, dtype=out_dtype, device=srcs.device)
+    nv_t = torch.tensor(nv, dtype=torch.float32, device=srcs.device)
+    for r0, r1 in _row_chunks(n_pad, width):
+        s = srcs[r0:r1]
+        s_l = s.long()
+        live = mask[r0:r1] & (active[s_l] != 0)
+        rows = torch.arange(r0, r1, dtype=torch.int32, device=srcs.device)
+        env = {"w": weight[r0:r1], "c": capacity[r0:r1], "esrc": s,
+               "edst": rows[:, None].expand(r1 - r0, width),
+               "outdeg": outdeg[s_l], "wdeg": wdeg[s_l], "nv": nv_t}
+
+        def prop(lvl):
+            nvals = states[lvl][s_l]
+            p = cast_like(p_fns[lvl]({"n": nvals, **env}), nvals.dtype, nvals)
+            return torch.where(nvals == idents[lvl], idents[lvl], p), nvals
+
+        for lvl in range(last):                # tie masks of prior levels
+            pv, _ = prop(lvl)
+            live = live & (pv == bests[lvl][r0:r1, None])
+        if mode == "nonbot":
+            vals = (states[last][s_l] != idents[last]).to(torch.int32)
+        else:
+            vals, _ = prop(last)
+        part = _tile_reduce(kop, torch.where(live, vals, out_ident))
+        acc = out[r0:r1]
+        for j in range(part.shape[1]):
+            acc = _combine(kop, acc, part[:, j])
+        out[r0:r1] = acc
+    return out
 
 
 # ---------------------------------------------------------------------------

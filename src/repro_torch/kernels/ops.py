@@ -19,6 +19,9 @@ resolve work, gather work, divergence, residual.  The work counters are
 int64 on the device (the reference accumulates them in float32, exact only
 below 2²⁴) and are read once, at the end.  Checkpointed and warm-started
 fixpoints, ``delta=`` seeding and batches belong to later slices.
+
+``embedding_bag`` and ``ell_softmax`` are the embedding-bag and ELL-softmax
+kernels' entry points under the names the reference's ``ops`` gives them.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from repro_torch.core.plan import (DENSE_FRONTIER, PUSH_RESOLUTION,
 from repro_torch.graph.structure import (Graph, blocked_ell_cached,
                                          push_resolution_cached, w_out_deg)
 from repro_torch.kernels import edge_reduce as _er
+from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: F401
+from repro_torch.kernels.segment_softmax import ell_softmax  # noqa: F401
 
 
 # The per-round sweep shape (and with it the built CUDA library), keyed

@@ -208,4 +208,7 @@ def test_cpu_tensor_takes_plain_version_and_counts_nothing():
                    ein.nbrs, ein.weight, ein.capacity, ein.mask, _t(active),
                    _t(outdeg), _t(wdeg),
                    [_t(states[c]) for c in rnd.comps_order], float(tg.n))
-    assert TER.LAUNCHES == {"pull": 0, "push": 0, "resolve": 0}
+    TER.ell_level_reduce(ein, "min", [rnd.p_exprs[0]],
+                         [_t(states[rnd.comps_order[0]])], [rnd.idents[0]],
+                         _t(active), _t(outdeg))
+    assert TER.LAUNCHES == {"pull": 0, "push": 0, "resolve": 0, "level": 0}

@@ -6,9 +6,15 @@ machine with a card and no JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each CUDA kernel is held against its plain PyTorch version on the same card
-tensors, bitwise (float sums included: the plain versions repeat the
-kernels' reduction order and the kernels are built with --fmad=false), and
-the cuda engine against the port's pull engine."""
+tensors: the edge sweeps, the level sweep and the embedding bag bitwise
+(float sums included: the plain versions repeat the kernels' reduction
+order and the kernels are built with --fmad=false); the ELL softmax within
+1e-6 (another summation order) and flash attention within 1e-5 + 1e-5 of
+the element in float32 (whole matrix products against the kernel's online
+recurrence).  Both compute in float32 and round the result once, so in
+bfloat16 they are held to one bfloat16 step of the element (2^-7 of it)
+plus that float32 difference.  The cuda engine is held against the port's
+pull engine."""
 import numpy as np
 import pytest
 import torch
@@ -20,8 +26,12 @@ from repro_torch.core import synthesis as TSy
 from repro_torch.core import usecases as TU
 from repro_torch.core.fusion import Prim
 from repro_torch.graph import structure as TS
+from repro_torch.core.kernel_lang import FLT, INT, Bin, Lit, Var
 from repro_torch.kernels import edge_reduce as TER
+from repro_torch.kernels import embedding_bag as TEB
+from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import ops as TO
+from repro_torch.kernels import segment_softmax as TSS
 
 
 @pytest.fixture(autouse=True)
@@ -93,7 +103,7 @@ def test_kernels_match_plain_on_card(cuda_device, name, density):
     k_push = TER.push_sweep(*push_args)
     k_res = TER.resolve_sweep(rnd, t_res, res.valid, res.in2out, k_push)
     torch.cuda.synchronize()
-    assert TER.LAUNCHES == {"pull": 1, "push": 1, "resolve": 1}
+    assert TER.LAUNCHES == {"pull": 1, "push": 1, "resolve": 1, "level": 0}
     p_pull = TER._pull_plain(*pull_args)
     p_push = TER._push_plain(*push_args)
     p_res = TER._resolve_plain(rnd, t_res, res.valid, res.in2out, p_push)
@@ -143,3 +153,183 @@ def test_weighted_pagerank_push_equals_pull_on_card(cuda_device):
     assert torch.equal(_bits(pull.value), _bits(push.value))
     ref = TE.run_direct(g, dk, engine="pull")
     torch.testing.assert_close(pull.value, ref.value, rtol=1e-5, atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# The level sweep, ELL softmax, embedding bag and flash attention.
+# ---------------------------------------------------------------------------
+
+def _rng_tensor(rng, shape, dev, dtype=torch.float32, scale=1.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale)
+                            .astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.gpu
+def test_level_kernel_matches_plain_on_card(cuda_device):
+    """Bitwise, on layouts tiled at (8, 128), (16, 128) and (8, 256): the
+    kernel skips the tiles that the layout's tile counts call empty."""
+    dev = cuda_device
+    g = TS.rmat_graph(400, 3200, seed=11, device=dev)
+    e = TS.to_blocked_ell(g)
+    rng = np.random.default_rng(5)
+    act = torch.from_numpy((rng.random(e.n_pad) < 0.7).astype(np.int32)) \
+        .to(dev)
+    od = torch.from_numpy(rng.integers(1, 5, e.n_pad).astype(np.float32)) \
+        .to(dev)
+    inf = float("inf")
+    s_int = torch.from_numpy(rng.integers(0, 50, e.n_pad).astype(np.int32))
+    s_int[rng.random(e.n_pad) < 0.2] = 2 ** 30 - 1
+    s_max = torch.from_numpy(rng.integers(0, 9, e.n_pad).astype(np.float32))
+    s_max[rng.random(e.n_pad) < 0.2] = -inf
+    s_min = torch.from_numpy(rng.uniform(0, 9, e.n_pad).astype(np.float32))
+    s_min[rng.random(e.n_pad) < 0.2] = inf
+    s_int, s_max, s_min = s_int.to(dev), s_max.to(dev), s_min.to(dev)
+    n1 = Bin("+", Var("n", INT), Lit(1, INT))
+    nw = Bin("+", Var("n", FLT), Var("w", FLT))
+    nc = Bin("min", Var("n", FLT), Var("c", FLT))
+    pr = Bin("/", Var("n", FLT), Var("outdeg", FLT))
+    b0 = TER._level_plain("max", [nc], [s_max], [-inf], e.srcs, e.weight,
+                          e.capacity, e.mask, act, od, torch.ones_like(od),
+                          [], "value", float(g.n))
+    cases = [("min", [n1], [s_int], [2 ** 30 - 1], [], "value"),
+             ("min", [nw], [s_min], [inf], [], "value"),
+             ("sum", [pr], [s_min.clamp(max=5.0)], [0.0], [], "value"),
+             # a sum whose ⊥ is not 0 visits the empty tiles too
+             ("sum", [pr], [s_min.clamp(max=5.0)], [0.5], [], "value"),
+             ("min", [nc, nw], [s_max, s_min], [-inf, inf], [b0], "value"),
+             ("min", [n1, nw], [s_int, s_min], [2 ** 30 - 1, inf],
+              [b0.to(torch.int32)], "nonbot")]
+    TER.reset_launches()
+    for bv, be in ((8, 128), (16, 128), (8, 256)):
+        e = TS.to_blocked_ell(g, block_v=bv, block_e=be)
+        assert bool((e.tile_nnz == 0).any())
+        n_pad = e.n_pad
+        for op, ps, states, idents, bests, mode in cases:
+            states = [st[:n_pad] for st in states]
+            bests = [b[:n_pad] for b in bests]
+            got = TER.ell_level_reduce(e, op, ps, states, idents,
+                                       act[:n_pad], od[:n_pad], bests=bests,
+                                       mode=mode)
+            torch.cuda.synchronize()
+            want = TER._level_plain(
+                op if mode == "value" else "max", ps, states, idents, e.srcs,
+                e.weight, e.capacity, e.mask, act[:n_pad], od[:n_pad],
+                torch.ones_like(od[:n_pad]), bests, mode, float(g.n))
+            assert got.dtype == want.dtype
+            assert torch.equal(_bits(got), _bits(want)), (bv, be, op, mode)
+    assert TER.LAUNCHES["level"] == 3 * len(cases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_softmax_kernel_matches_plain_on_card(cuda_device, dtype):
+    dev = cuda_device
+    e = TS.to_blocked_ell(TS.rmat_graph(400, 3200, seed=11, device=dev))
+    rng = np.random.default_rng(6)
+    mask = e.mask.clone()
+    mask[5] = False
+    for scale in (5.0, 1e4):
+        scores = _rng_tensor(rng, tuple(mask.shape), dev, dtype, scale)
+        TSS.reset_launches()
+        got = TSS.ell_softmax(scores, mask)
+        torch.cuda.synchronize()
+        assert TSS.LAUNCHES["softmax"] == 1
+        want = TSS._softmax_plain(scores, mask)
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        assert bool((got[~mask] == 0).all())
+        rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 8])
+def test_embedding_bag_kernel_matches_plain_on_card(cuda_device, dtype, k):
+    dev = cuda_device
+    rng = np.random.default_rng(k)
+    v = 1000
+    table = _rng_tensor(rng, (v, 64), dev, dtype)
+    idx = torch.from_numpy(rng.integers(-v - 5, v + 5, (300, k))
+                           .astype(np.int32)).to(dev)
+    w = _rng_tensor(rng, (300, k), dev)
+    TEB.reset_launches()
+    for mode, weights in (("sum", None), ("mean", None), ("sum", w),
+                          ("mean", w)):
+        got = TEB.embedding_bag(table, idx, weights=weights, mode=mode)
+        torch.cuda.synchronize()
+        want = TEB._bag_plain(table, idx, weights, mode)
+        assert got.dtype == dtype
+        assert torch.equal(got, want), (mode, weights is None)
+    assert TEB.LAUNCHES["bag"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,s,t,d,causal,chunk", [
+    (4, 4, 64, 64, 32, True, None), (4, 2, 200, 200, 128, True, None),
+    (8, 1, 256, 256, 64, False, None), (2, 2, 130, 130, 16, True, 32),
+    (4, 2, 48, 80, 128, True, None)])
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, h, hkv, s,
+                                            t, d, causal, chunk):
+    dev = cuda_device
+    rng = np.random.default_rng(s + d)
+    q = _rng_tensor(rng, (2, h, s, d), dev, dtype)
+    k = _rng_tensor(rng, (2, hkv, t, d), dev, dtype)
+    v = _rng_tensor(rng, (2, hkv, t, d), dev, dtype)
+    TFA.reset_launches()
+    got = TFA.flash_attention(q, k, v, causal=causal, chunk=chunk)
+    torch.cuda.synchronize()
+    assert TFA.LAUNCHES["flash"] == 1
+    want = TFA._flash_plain(q, k, v, causal, chunk)
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-4)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+def test_fixed_wrappers_reject_bad_card_tensors(cuda_device):
+    dev = cuda_device
+    table = torch.zeros((10, 8), device=dev)
+    idx = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="idx must be torch.int32"):
+        TEB.embedding_bag(table, idx.long())
+    with pytest.raises(ValueError, match="table must be contiguous"):
+        TEB.embedding_bag(torch.zeros((8, 10), device=dev).T, idx)
+    with pytest.raises(ValueError, match="weights must have"):
+        TEB.embedding_bag(table, idx, weights=torch.ones((4, 3), device=dev))
+    scores = torch.zeros((16, 128), device=dev)
+    mask = torch.ones((16, 128), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="mask must be torch.bool"):
+        TSS.ell_softmax(scores, mask.int())
+    with pytest.raises(ValueError, match="scores must be float32"):
+        TSS.ell_softmax(scores.half(), mask)
+    with pytest.raises(ValueError, match="scores must be contiguous"):
+        TSS.ell_softmax(torch.zeros((128, 16), device=dev).T, mask)
+    q = torch.zeros((1, 4, 16, 32), device=dev)
+    kv = torch.zeros((1, 2, 16, 32), device=dev)
+    with pytest.raises(ValueError, match="k must be torch.float32"):
+        TFA.flash_attention(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError, match="head dim 48"):
+        z = torch.zeros((1, 2, 16, 48), device=dev)
+        TFA.flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        TFA.flash_attention(q, torch.zeros((1, 3, 16, 32), device=dev),
+                            torch.zeros((1, 3, 16, 32), device=dev))
+    with pytest.raises(ValueError, match="q must be contiguous"):
+        TFA.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                            kv, kv)
+    g = TS.rmat_graph(64, 256, seed=1, device=dev)
+    e = TS.to_blocked_ell(g)
+    st = torch.zeros(e.n_pad, device=dev)
+    od = torch.ones(e.n_pad, device=dev)
+    act = torch.ones(e.n_pad, dtype=torch.int32, device=dev)
+    p = Bin("+", Var("n", FLT), Var("w", FLT))
+    with pytest.raises(ValueError, match="state\\[0\\] must be float32 or "
+                                         "int32"):
+        TER.ell_level_reduce(e, "min", [p], [st.double()], [0.0], act, od)
+    with pytest.raises(ValueError, match="outdeg must have shape"):
+        TER.ell_level_reduce(e, "min", [p], [st], [0.0], act, od[:-8])
+    with pytest.raises(ValueError, match="1 bests"):
+        TER.ell_level_reduce(e, "min", [p, p], [st, st], [0.0, 0.0], act, od)
