@@ -47,10 +47,12 @@ libraries at once, into ``build/repro_torch/``), and then
      and weighted, and a bfloat16 table, bitwise;
    - ``flash_attention.flash_attention`` at llama3.2-3B's attention shape
      (24 heads, 8 KV heads, d_head 128, bfloat16, ``configs/
-     llama3_2_3b.py``) with S = T = 4096, causal and causal with chunk 1024,
-     and float32 at S = T = 1024: elementwise within one bfloat16 step
-     (2^-7 of the element) + 1e-4 in bfloat16 and 1e-5 + 1e-5 of the
-     element in float32 of its plain version;
+     llama3_2_3b.py``) with S = T = 4096, causal and causal with chunk 1024
+     (the tensor-core kernel ``flash_sm90_kernel``), and float32 at S = T =
+     1024 (the CUDA-core ``flash_f32_kernel``): elementwise within one
+     bfloat16 step (2^-7 of the element) + 1e-4 in bfloat16 and 1e-5 +
+     1e-5 of the element in float32 of its plain version; the compiled
+     tensor-core kernel's registers, spills and shared memory are printed;
    each timed with CUDA events beside its plain version, its bound and,
    where one PyTorch call computes the same function
    (``F.embedding_bag``, ``F.scaled_dot_product_attention``), that call.
@@ -84,11 +86,13 @@ REPLACES = {"pull": "src/repro/kernels/edge_reduce.py:165",
             "level": "src/repro/kernels/edge_reduce.py:648",
             "softmax": "src/repro/kernels/segment_softmax.py:30",
             "bag": "src/repro/kernels/embedding_bag.py:33",
-            "flash": "src/repro/kernels/flash_attention.py:34"}
+            "flash_sm90": "src/repro/kernels/flash_attention.py:34",
+            "flash_f32": "src/repro/kernels/flash_attention.py:34"}
 SOURCES = {"level": "src/repro_torch/csrc/edge_level.cuh",
            "softmax": "src/repro_torch/csrc/segment_softmax.cu",
            "bag": "src/repro_torch/csrc/embedding_bag.cu",
-           "flash": "src/repro_torch/csrc/flash_attention.cu"}
+           "flash_sm90": "src/repro_torch/csrc/flash_attention_sm90.cu",
+           "flash_f32": "src/repro_torch/csrc/flash_attention.cu"}
 # DLRM RM2's embedding tables (configs/dlrm_rm2.py) and llama3.2-3B's
 # attention (configs/llama3_2_3b.py).
 RM2_VOCAB, RM2_DIM, RM2_BAGS = 4_000_000, 64, 65_536
@@ -170,7 +174,7 @@ def main(argv) -> int:
 
     # ------------------------------------------------------------------
     # Build every library at once (one nvcc each): the rounds', the level
-    # kernels' and the fixed kernels' (bag, softmax, flash).
+    # kernels' and the fixed kernels' (bag, softmax, both flash kernels).
     # ------------------------------------------------------------------
     progs = {name: TF.fuse(TU.ALL_SPECS[name]())
              for name in ("BFS", "SSSP", "WSP", "CC")}
@@ -366,7 +370,8 @@ def main(argv) -> int:
     # Phase 4 helpers: the four kernels off the graph main path.
     # ------------------------------------------------------------------
     counters = {"level": ER.LAUNCHES, "softmax": SS.LAUNCHES,
-                "bag": EB.LAUNCHES, "flash": FA.LAUNCHES}
+                "bag": EB.LAUNCHES, "flash_sm90": FA.LAUNCHES,
+                "flash_f32": FA.LAUNCHES}
     entry_cases = {k: [] for k in counters}
     phase_launches = dict.fromkeys(counters, 0)
 
@@ -378,6 +383,21 @@ def main(argv) -> int:
             return time_ms(fn, reps)
         finally:
             torch.use_deterministic_algorithms(True)
+
+    def limit_share(got, want, tol):
+        """The worst elementwise |Δ| as a share of its limit atol +
+        rtol·|want| for ``tol`` = (rtol, atol), the max |Δ|, and that as a
+        share of the median size of the non-zero outputs (a masked softmax
+        slot is exactly 0)."""
+        rtol, atol = tol
+        diff = (got.float() - want.float()).abs()
+        mag = want.float().abs()
+        err = float(diff.max())
+        worst = float((diff / (atol + rtol * mag)).max())
+        nonzero = mag[mag > 0]
+        median = (err / float(nonzero.median()) if nonzero.numel()
+                  else None)
+        return worst, err, median
 
     def entry_case(kernel, label, drive, plain, tol, nbytes, ops=0.0,
                    peak=None, library=None, reps=10, plain_reps=2,
@@ -412,24 +432,13 @@ def main(argv) -> int:
                                    f"version ({label}): max |Δ| {err}")
         else:
             rtol, atol = tol
-            diff = (got.float() - want.float()).abs()
-            mag = want.float().abs()
-            err = float(diff.max())
-            # the worst |Δ| as a share of its element's limit, and of the
-            # median size of the non-zero outputs (a masked softmax slot is
-            # exactly 0)
-            worst = float((diff / (atol + rtol * mag)).max())
-            nonzero = mag[mag > 0]
-            check = {"worst_over_limit": worst, "err_over_median":
-                     err / float(nonzero.median()) if nonzero.numel()
-                     else None}
-            del nonzero
+            worst, err, median = limit_share(got, want, tol)
+            check = {"worst_over_limit": worst, "err_over_median": median}
             if not bool(torch.isfinite(got).all()) or not worst <= 1.0:
                 raise RuntimeError(
                     f"{kernel} kernel disagrees with its plain version "
                     f"({label}): max |Δ| {err}, {worst} times its limit "
                     f"{atol} + {rtol}·|plain|")
-            del diff, mag
         del got, want
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / peak * 1e3 if peak else 0.0
@@ -756,6 +765,9 @@ def main(argv) -> int:
     del table, tables, bag_idx, bag_w
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(50)
+    attrs = {f"D={d}": FA.sm90_attributes(d) for d in (16, 32, 64, 128)}
+    log(f"flash_sm90 compiled: {json.dumps(attrs)}")
+    record["flash_sm90_attributes"] = attrs
     for s_len, chunk, dtype in ((4096, None, torch.bfloat16),
                                 (4096, 1024, torch.bfloat16),
                                 (1024, None, torch.float32)):
@@ -776,8 +788,10 @@ def main(argv) -> int:
                    F.scaled_dot_product_attention(q, k, v, attn_mask=vis,
                                                   enable_gqa=True))
         tname = str(dtype).removeprefix("torch.")
-        entry_case("flash", f"llama3.2-3B {tname} S=T={s_len} causal"
-                   + (f" chunk={chunk}" if chunk else ""),
+        kname = "flash_sm90" if dtype == torch.bfloat16 else "flash_f32"
+        label = (f"llama3.2-3B {tname} S=T={s_len} causal"
+                 + (f" chunk={chunk}" if chunk else ""))
+        entry_case(kname, label,
                    lambda q=q, k=k, v=v, chunk=chunk: FA.flash_attention(
                        q, k, v, causal=True, chunk=chunk),
                    lambda q=q, k=k, v=v, chunk=chunk: FA._flash_plain(
@@ -812,7 +826,9 @@ def main(argv) -> int:
     for kname, label in (("level", "rmat16 float n+w"),
                          ("softmax", "rmat16 in-layout"),
                          ("bag", "float32 table K=1 sum"),
-                         ("flash", "llama3.2-3B bfloat16 S=T=4096 causal")):
+                         ("flash_sm90",
+                          "llama3.2-3B bfloat16 S=T=4096 causal"),
+                         ("flash_f32", "llama3.2-3B float32 S=T=1024 causal")):
         c = [c for c in entry_cases[kname] if c["case"] == label][0]
         kernels.append({
             "name": f"{kname}_kernel", "route": "cuda",

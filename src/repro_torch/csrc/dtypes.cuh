@@ -1,6 +1,6 @@
-// Element types of the fixed kernels (embedding bag, ELL softmax, flash
-// attention): float32 and bfloat16 storage, float32 arithmetic.  The
-// conversions round to nearest even, as torch's .to(torch.bfloat16) does.
+// Element types of the embedding bag and the ELL softmax: float32 and
+// bfloat16 storage, float32 arithmetic.  The conversions round to nearest
+// even, as torch's .to(torch.bfloat16) does.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,13 +1,15 @@
-// Forward flash attention for Hopper (sm_90a): online-softmax attention
-// with causal and chunked-local masks and grouped-query heads.
+// Forward flash attention in float32 for Hopper (sm_90a): online-softmax
+// attention with causal and chunked-local masks and grouped-query heads, on
+// the CUDA cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// _flash_kernel (launched by flash_attention).  For q [B, H, S, D] and k, v
-// [B, Hkv, T, D]:
+// _flash_kernel (launched by flash_attention) for float32 inputs; bfloat16
+// calls take flash_attention_sm90.cu's tensor-core kernel.  For q [B, H, S,
+// D] and k, v [B, Hkv, T, D]:
 //
 //   m ← max(m, rowmax(logits));  p = exp(logits − m) (0 under the mask)
 //   l ← l·α + rowsum(p);         acc ← acc·α + p·V_tile,  α = exp(m_old − m)
-//   out = acc / max(l, 1e-30), in q's type.
+//   out = acc / max(l, 1e-30).
 //
 // Masks come from positions that start at 0 for queries and keys alike:
 // causal keeps key ≤ query, a chunk keeps key // chunk == query // chunk,
@@ -21,21 +23,20 @@
 // (chunk g + G·c of the row, so the G lanes of a row read neighbouring
 // 16-byte words of shared memory and the rows of a warp read the same key);
 // a block holds 128 / G query rows.  The block walks its KV tiles of 32 keys
-// in order, staging K and V in shared memory as float32, and skips a tile
-// only when the causal or chunk mask hides all of it from every row of the
-// block (then α = 1 and p = 0, so skipping is exact).  Both products, q·kᵀ
-// and p·v, are float32 fused multiply-adds on the CUDA cores (fmaf, which
+// in order, staging K and V in shared memory, and skips a tile only when
+// the causal or chunk mask hides all of it from every row of the block
+// (then α = 1 and p = 0, so skipping is exact).  Both products, q·kᵀ and
+// p·v, are float32 fused multiply-adds on the CUDA cores (fmaf, which
 // --fmad=false leaves alone: the kernel is held to a tolerance, not
 // bitwise, against its plain version); the row's G partial dot products
 // are summed with shuffles.
 //
-// What bounds it on an H100: operations (4·D per unmasked query–key pair;
-// the bound is taken at the tensor cores' bfloat16 rate, which this
-// CUDA-core kernel cannot reach — wgmma and TMA are later work).
+// What bounds it on an H100: operations (4·D per unmasked query–key pair at
+// the CUDA cores' 67 TFLOP/s in float32).  The tensor cores' TF32 would
+// keep about three decimal digits, short of the float32 reference.
 #include <cstdint>
+#include <cuda_runtime.h>
 #include <math.h>
-
-#include "dtypes.cuh"
 
 namespace grafs {
 
@@ -50,11 +51,12 @@ __device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
   acc.w = fmaf(a, b.w, acc.w);
 }
 
-template <class T, int D>
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int H, int Hkv,
-             int S, int T_, int causal, int chunk, float scale, int n_qt) {
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int H,
+                 int Hkv, int S, int T_, int causal, int chunk, float scale,
+                 int n_qt) {
   constexpr int G = D >= 32 ? D / 32 : 1;     // lanes per query row
   constexpr int NCH = D / G / 4;              // float4 chunks per lane
   constexpr int BQ = FA_THREADS / G;          // query rows per block
@@ -68,14 +70,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * BQ;
   const int qi = q0 + r;
   const bool live = qi < S;
-  const T* qrow = q + ((long long)bh * S + (live ? qi : 0)) * D;
+  const float* qrow = q + ((long long)bh * S + (live ? qi : 0)) * D;
   const long long kv0 = ((long long)b * Hkv + hk) * T_ * D;
   float4 qv[NCH], acc[NCH];
 #pragma unroll
   for (int c = 0; c < NCH; ++c) {
     const int d = 4 * (g + G * c);
-    qv[c] = make_float4(to_f(qrow[d]), to_f(qrow[d + 1]), to_f(qrow[d + 2]),
-                        to_f(qrow[d + 3]));
+    qv[c] = make_float4(qrow[d], qrow[d + 1], qrow[d + 2], qrow[d + 3]);
     acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float m = FA_NEG, l = 0.f;
@@ -95,8 +96,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = threadIdx.x; e < FA_BK * D; e += FA_THREADS) {
       const int kk = k0 + e / D;
       const long long at = kv0 + (long long)k0 * D + e;
-      ksf[e] = kk < T_ ? to_f(k[at]) : 0.f;
-      vsf[e] = kk < T_ ? to_f(v[at]) : 0.f;
+      ksf[e] = kk < T_ ? k[at] : 0.f;
+      vsf[e] = kk < T_ ? v[at] : 0.f;
     }
     __syncthreads();
     float p[FA_BK];
@@ -148,65 +149,52 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (!live) return;
   const float den = fmaxf(l, 1e-30f);
-  T* orow = out + ((long long)bh * S + qi) * D;
+  float* orow = out + ((long long)bh * S + qi) * D;
 #pragma unroll
   for (int c = 0; c < NCH; ++c) {
     const int d = 4 * (g + G * c);
-    orow[d] = from_f<T>(acc[c].x / den);
-    orow[d + 1] = from_f<T>(acc[c].y / den);
-    orow[d + 2] = from_f<T>(acc[c].z / den);
-    orow[d + 3] = from_f<T>(acc[c].w / den);
+    orow[d] = acc[c].x / den;
+    orow[d + 1] = acc[c].y / den;
+    orow[d + 2] = acc[c].z / den;
+    orow[d + 3] = acc[c].w / den;
   }
 }
 
-template <class T, int D>
-int launch_flash(const void* q, const void* k, const void* v, void* out,
-                 int B, int H, int Hkv, int S, int T_, int causal, int chunk,
-                 float scale, cudaStream_t st) {
+template <int D>
+int launch_flash_f32(const float* q, const float* k, const float* v,
+                     float* out, int B, int H, int Hkv, int S, int T_,
+                     int causal, int chunk, float scale, cudaStream_t st) {
   constexpr int G = D >= 32 ? D / 32 : 1;
   constexpr int BQ = FA_THREADS / G;
   const int n_qt = (S + BQ - 1) / BQ;
   const long long blocks = (long long)B * H * n_qt;
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  flash_kernel<T, D><<<(unsigned)blocks, FA_THREADS, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, Hkv, S, T_, causal,
-      chunk, scale, n_qt);
+  flash_f32_kernel<D><<<(unsigned)blocks, FA_THREADS, 0, st>>>(
+      q, k, v, out, H, Hkv, S, T_, causal, chunk, scale, n_qt);
   return (int)cudaGetLastError();
-}
-
-template <class T>
-int dispatch_flash(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int Hkv, int S, int T_, int D, int causal,
-                   int chunk, float scale, cudaStream_t st) {
-  switch (D) {
-    case 16: return launch_flash<T, 16>(q, k, v, out, B, H, Hkv, S, T_,
-                                        causal, chunk, scale, st);
-    case 32: return launch_flash<T, 32>(q, k, v, out, B, H, Hkv, S, T_,
-                                        causal, chunk, scale, st);
-    case 64: return launch_flash<T, 64>(q, k, v, out, B, H, Hkv, S, T_,
-                                        causal, chunk, scale, st);
-    case 128: return launch_flash<T, 128>(q, k, v, out, B, H, Hkv, S, T_,
-                                          causal, chunk, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace grafs
 
-// q/out [B, H, S, D], k/v [B, Hkv, T, D], all of dtype grafs::DT_F32 or
-// DT_BF16; D in {16, 32, 64, 128}; chunk <= 0 means no chunk mask.  Returns
-// the launch's cudaGetLastError() (0 = launched).
-extern "C" int grafs_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int H,
-                                     int Hkv, int S, int T_, int D,
-                                     int causal, int chunk, float scale,
-                                     int dtype, void* stream) {
+// q/out [B, H, S, D], k/v [B, Hkv, T, D], all float32; D in {16, 32, 64,
+// 128}; chunk <= 0 means no chunk mask.  Returns the launch's
+// cudaGetLastError() (0 = launched).
+extern "C" int grafs_flash_f32(const float* q, const float* k,
+                               const float* v, float* out, int B, int H,
+                               int Hkv, int S, int T_, int D, int causal,
+                               int chunk, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == grafs::DT_BF16)
-    return grafs::dispatch_flash<__nv_bfloat16>(q, k, v, out, B, H, Hkv, S,
-                                                T_, D, causal, chunk, scale,
-                                                st);
-  return grafs::dispatch_flash<float>(q, k, v, out, B, H, Hkv, S, T_, D,
-                                      causal, chunk, scale, st);
+  switch (D) {
+    case 16: return grafs::launch_flash_f32<16>(q, k, v, out, B, H, Hkv, S,
+                                                T_, causal, chunk, scale, st);
+    case 32: return grafs::launch_flash_f32<32>(q, k, v, out, B, H, Hkv, S,
+                                                T_, causal, chunk, scale, st);
+    case 64: return grafs::launch_flash_f32<64>(q, k, v, out, B, H, Hkv, S,
+                                                T_, causal, chunk, scale, st);
+    case 128: return grafs::launch_flash_f32<128>(q, k, v, out, B, H, Hkv, S,
+                                                  T_, causal, chunk, scale,
+                                                  st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -11,8 +11,9 @@ loaded with ``ctypes``:
             the unit generated by ``synthesis.emit_cuda_level`` (which
             includes ``csrc/edge_level.cuh``);
 ``fixed`` — one library for the kernels that are not generated: every
-            ``csrc/*.cu`` (embedding bag, ELL softmax, flash attention),
-            included by one unit.
+            ``csrc/*.cu`` (embedding bag, ELL softmax, flash attention in
+            bfloat16 on the tensor cores and in float32), included by one
+            unit.
 
 A library is named by the content hash of its unit, of every ``csrc/``
 file the unit includes (followed transitively) and of the flags, so a
@@ -41,7 +42,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # PyTorch's elementwise ops are, so the kernels agree bitwise with their
 # plain versions; never --use_fast_math (it would also flush denormals and
 # approximate division).  Flash attention, held to a tolerance, contracts
-# its dot products explicitly with fmaf(), which the flag leaves alone.
+# its float32 dot products and its softmax exponent explicitly with fmaf(),
+# which the flag leaves alone.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -128,10 +130,13 @@ def _declare_fixed(lib):
     lib.grafs_embedding_bag.argtypes = [vp, vp, vp, vp, i64, i32, i64, i32,
                                         i32, i32, vp]
     lib.grafs_ell_softmax.argtypes = [vp, vp, vp, i64, i64, i32, vp]
-    lib.grafs_flash_attention.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
-                                          i32, i32, i32, i32, _F32, i32, vp]
+    lib.grafs_flash_f32.argtypes = [vp] * 4 + [i32] * 8 + [_F32, vp]
+    lib.grafs_flash_sm90.argtypes = [vp] * 4 + [i32] * 8 + [_F32, vp]
+    lib.grafs_flash_sm90_attributes.argtypes = [i32,
+                                                ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.grafs_embedding_bag, lib.grafs_ell_softmax,
-               lib.grafs_flash_attention):
+               lib.grafs_flash_f32, lib.grafs_flash_sm90,
+               lib.grafs_flash_sm90_attributes):
         fn.restype = i32
     return lib
 

@@ -1,4 +1,4 @@
-"""Forward flash attention: CUDA kernel and plain version.
+"""Forward flash attention: two CUDA kernels and a plain version.
 
 The port of ``repro.kernels.flash_attention``: q [B, H, S, D], k/v [B,
 Hkv, T, D] (H a multiple of Hkv, grouped-query heads), float32 or
@@ -7,19 +7,33 @@ key // chunk == query // chunk), positions starting at 0 for queries and
 keys alike → [B, H, S, D] in q's dtype.  Any S and T; D in {16, 32, 64,
 128}.
 
-The kernel (``csrc/flash_attention.cu``, replacing ``_flash_kernel``) runs
-one block per (b·h, tile of queries), walks the KV tiles through shared
-memory with the online-softmax recurrence and computes both products in
-float32 on the CUDA cores; the KV head is read as h // (H / Hkv), never
-repeated.  The plain version computes the same function with whole
-matrix products per KV head; the two are held to a tolerance.
+Both kernels replace ``_flash_kernel``, and ``flash_attention`` picks one by
+dtype (a documented dispatch, not a fallback: each serves every call of
+its dtype):
 
-``flash_attention`` launches the kernel for CUDA tensors (checking device,
+- bfloat16 → ``csrc/flash_attention_sm90.cu`` (``flash_sm90_kernel``): TMA
+  loads of Q once and of K/V through a shared-memory ring, both products
+  as ``wgmma`` on the tensor cores with float32 accumulators, the online
+  softmax in registers, and P split into a bfloat16 high and low part so
+  that p·v keeps float32's accuracy, as the reference's float32 ``p @ v``
+  does;
+- float32 → ``csrc/flash_attention.cu`` (``flash_f32_kernel``): both
+  products in float32 on the CUDA cores (the tensor cores' TF32 would
+  fall short of the float32 reference).
+
+Each runs one block per (b·h, tile of queries), walks only the KV tiles
+its rows can see and reads the KV head as h // (H / Hkv), never repeated.
+The plain version computes the same function with whole matrix products
+per KV head; the kernels are held to a tolerance against it.
+
+``flash_attention`` launches a kernel for CUDA tensors (checking device,
 dtype, shape and contiguity, and the launch status) and counts the launch
-in ``LAUNCHES``; for CPU tensors it runs the plain version.
+in ``LAUNCHES`` under its route (``flash_sm90`` or ``flash_f32``) and in
+the total ``flash``; for CPU tensors it runs the plain version.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -27,15 +41,15 @@ import torch
 
 from repro_torch.kernels.launch import check, raise_on, stream
 
-LAUNCHES = {"flash": 0}
+LAUNCHES = {"flash": 0, "flash_sm90": 0, "flash_f32": 0}
 
 _NEG = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -48,7 +62,7 @@ def flash_attention(q, k, v, causal: bool = True,
                          f"D] shape, got {tuple(q.shape)}, {tuple(k.shape)},"
                          f" {tuple(v.shape)}")
     b, h, s, d = q.shape
-    hkv, t = k.shape[1], k.shape[2]
+    hkv = k.shape[1]
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or h % hkv:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)} (H must be a multiple of Hkv)")
@@ -56,22 +70,55 @@ def flash_attention(q, k, v, causal: bool = True,
         raise ValueError(f"chunk must be positive, got {chunk}")
     if not q.is_cuda:
         return _flash_plain(q, k, v, causal, chunk)
-    if q.dtype not in _DTYPES:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         check(name, x, q.dtype)
-    from repro_torch.kernels import build
-    lib = build.fixed_library()
-    out = torch.empty_like(q)
-    status = lib.grafs_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
-        s, t, d, int(causal), 0 if chunk is None else int(chunk),
-        1.0 / math.sqrt(d), _DTYPES[q.dtype], stream(q))
-    raise_on(status, "flash_attention")
+    if q.dtype == torch.bfloat16:
+        out, route = _launch_sm90(q, k, v, causal, chunk), "flash_sm90"
+    else:
+        out, route = _launch_f32(q, k, v, causal, chunk), "flash_f32"
+    LAUNCHES[route] += 1
     LAUNCHES["flash"] += 1
     return out
+
+
+def _args(q, k, v, out, causal, chunk):
+    b, h, s, d = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            k.shape[1], s, k.shape[2], d, int(causal),
+            0 if chunk is None else int(chunk), 1.0 / math.sqrt(d))
+
+
+def _launch_f32(q, k, v, causal, chunk):
+    from repro_torch.kernels import build
+    out = torch.empty_like(q)
+    raise_on(build.fixed_library().grafs_flash_f32(
+        *_args(q, k, v, out, causal, chunk), stream(q)), "flash_f32")
+    return out
+
+
+def _launch_sm90(q, k, v, causal, chunk):
+    """The bfloat16 tensor-core kernel on checked card tensors."""
+    from repro_torch.kernels import build
+    out = torch.empty_like(q)
+    raise_on(build.fixed_library().grafs_flash_sm90(
+        *_args(q, k, v, out, causal, chunk), stream(q)), "flash_sm90")
+    return out
+
+
+def sm90_attributes(d: int) -> dict:
+    """The compiled bfloat16 kernel's registers per thread, local (spill)
+    bytes per thread and shared-memory bytes per block at head dim ``d``
+    (``cudaFuncGetAttributes``; needs the card)."""
+    from repro_torch.kernels import build
+    attrs = (ctypes.c_int * 4)()
+    raise_on(build.fixed_library().grafs_flash_sm90_attributes(
+        d, attrs), "flash_sm90 attributes")
+    return {"registers": attrs[0], "local_bytes": attrs[1],
+            "static_smem_bytes": attrs[2], "dynamic_smem_bytes": attrs[3]}
 
 
 def attention_mask(s: int, t: int, causal: bool, chunk: Optional[int],

@@ -13,8 +13,9 @@ order and the kernels are built with --fmad=false); the ELL softmax within
 the element in float32 (whole matrix products against the kernel's online
 recurrence).  Both compute in float32 and round the result once, so in
 bfloat16 they are held to one bfloat16 step of the element (2^-7 of it)
-plus that float32 difference.  The cuda engine is held against the port's
-pull engine."""
+plus that float32 difference; the bfloat16 route's tensor cores take P as
+a high and a low bfloat16 part, which keeps it inside that difference.
+The cuda engine is held against the port's pull engine."""
 import numpy as np
 import pytest
 import torch
@@ -264,6 +265,31 @@ def test_embedding_bag_kernel_matches_plain_on_card(cuda_device, dtype, k):
     assert TEB.LAUNCHES["bag"] == 4
 
 
+_FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+_FLASH_ROUTE = {torch.float32: "flash_f32", torch.bfloat16: "flash_sm90"}
+
+
+def _flash_case(dev, dtype, seed, b, h, hkv, s, t, d, causal, chunk,
+                qscale=1.0):
+    """One call against the plain version, on the route its dtype takes,
+    held to the smoke's limits (rtol, atol) = _FLASH_TOL[dtype]."""
+    rng = np.random.default_rng(seed)
+    q = _rng_tensor(rng, (b, h, s, d), dev, dtype, qscale)
+    k = _rng_tensor(rng, (b, hkv, t, d), dev, dtype)
+    v = _rng_tensor(rng, (b, hkv, t, d), dev, dtype)
+    TFA.reset_launches()
+    got = TFA.flash_attention(q, k, v, causal=causal, chunk=chunk)
+    torch.cuda.synchronize()
+    route = _FLASH_ROUTE[dtype]
+    assert TFA.LAUNCHES == {"flash": 1, "flash_sm90": 0, "flash_f32": 0,
+                            route: 1}
+    want = TFA._flash_plain(q, k, v, causal, chunk)
+    rtol, atol = _FLASH_TOL[dtype]
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,hkv,s,t,d,causal,chunk", [
@@ -272,20 +298,32 @@ def test_embedding_bag_kernel_matches_plain_on_card(cuda_device, dtype, k):
     (4, 2, 48, 80, 128, True, None)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, h, hkv, s,
                                             t, d, causal, chunk):
-    dev = cuda_device
-    rng = np.random.default_rng(s + d)
-    q = _rng_tensor(rng, (2, h, s, d), dev, dtype)
-    k = _rng_tensor(rng, (2, hkv, t, d), dev, dtype)
-    v = _rng_tensor(rng, (2, hkv, t, d), dev, dtype)
-    TFA.reset_launches()
-    got = TFA.flash_attention(q, k, v, causal=causal, chunk=chunk)
-    torch.cuda.synchronize()
-    assert TFA.LAUNCHES["flash"] == 1
-    want = TFA._flash_plain(q, k, v, causal, chunk)
-    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-4)
-    assert got.dtype == dtype
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol)
+    _flash_case(cuda_device, dtype, s + d, 2, h, hkv, s, t, d, causal, chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,s,t,d,causal,chunk,qscale", [
+    (2, 4, 2, 1, 80, 16, True, None, 1.0),         # one query row
+    (1, 4, 4, 63, 80, 32, True, None, 1.0),        # ragged S and T
+    (2, 4, 1, 65, 80, 64, False, None, 1.0),
+    (1, 4, 2, 200, 80, 128, True, None, 1.0),      # S > T
+    (2, 2, 1, 80, 200, 32, True, None, 1.0),       # S < T
+    (1, 2, 1, 4097, 4096, 128, True, None, 1.0),   # one row past a tile
+    (1, 4, 2, 100, 40, 64, True, None, 1.0),       # T < 64
+    (1, 4, 4, 30, 30, 16, False, None, 1.0),
+    (2, 8, 2, 300, 300, 128, True, 48, 1.0),       # chunk not a tile
+    (1, 4, 1, 256, 256, 32, False, 48, 1.0),
+    (1, 2, 2, 4096, 4096, 128, True, 1024, 1.0),
+    (2, 4, 2, 256, 256, 128, True, None, 8.0),     # peaked softmax
+    (1, 4, 4, 129, 129, 64, True, None, 8.0),
+    (1, 6, 3, 200, 333, 16, True, 48, 8.0)])
+def test_flash_sm90_kernel_matches_plain_on_card(cuda_device, b, h, hkv, s,
+                                                 t, d, causal, chunk,
+                                                 qscale):
+    """The bfloat16 tensor-core route at every head dim, ragged S and T,
+    Hkv in {1, 2, H}, chunks that cut KV tiles, and peaked softmaxes."""
+    _flash_case(cuda_device, torch.bfloat16, s + 7 * t + d, b, h, hkv, s, t,
+                d, causal, chunk, qscale)
 
 
 @pytest.mark.gpu

@@ -336,6 +336,44 @@ def test_flash_attention_bf16():
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("qscale,chunk", [(1.0, None), (8.0, None),
+                                          (1.0, 32)])
+def test_flash_split_p_matches_pallas_bf16(qscale, chunk):
+    """The bfloat16 card kernel's arithmetic for p·v, mirrored in plain
+    PyTorch: P as a bfloat16 high part plus the bfloat16 rounding of the
+    rest, each product of bfloat16 values exact in float32.  Held against
+    the Pallas kernel in bfloat16 to the card's limit, one bfloat16 step of
+    the element (2^-7 of it) plus 1e-4.
+
+    This checks the precision argument for the split only: the mirror
+    calls no port code but ``attention_mask`` and follows neither the
+    kernel's online rescaling nor its exp2.  The kernel itself is held to
+    the same limit on the card by ``tests/test_torch_gpu.py::
+    test_flash_sm90_kernel_matches_plain_on_card``."""
+    from repro_torch.kernels import flash_attention as TFA
+    q, k, v = _qkv(1, 4, 2, 96, 64, 17)
+    q = q * qscale
+    cast = lambda a: jnp.asarray(a).astype(jnp.bfloat16)   # noqa: E731
+    want = np.asarray(j_flash(cast(q), cast(k), cast(v), causal=True,
+                              chunk=chunk, block_q=32, block_k=32),
+                      np.float32)
+    bf = lambda a: _t(a).to(torch.bfloat16).float()        # noqa: E731
+    qf, kf, vf = bf(q)[0], bf(k)[0].repeat_interleave(2, 0), \
+        bf(v)[0].repeat_interleave(2, 0)
+    mask = TFA.attention_mask(96, 96, True, chunk)
+    logits = torch.where(mask, qf @ kf.transpose(1, 2) / 8.0, -1e30)
+    p = torch.where(mask, torch.exp(logits - logits.amax(-1, keepdim=True)),
+                    0.0)
+    hi = p.to(torch.bfloat16)
+    lo = (p - hi.float()).to(torch.bfloat16)
+    assert float((hi.float() + lo.float() - p).abs().max()) <= \
+        2.0 ** -16 * float(p.abs().max())
+    acc = hi.float() @ vf + lo.float() @ vf
+    got = (acc / p.sum(-1, keepdim=True).clamp(min=1e-30)).to(torch.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(), want[0], rtol=2.0 ** -7,
+                               atol=1e-4)
+
+
 def test_flash_attention_cross_lengths():
     """S ≠ T, neither a power of two: positions start at 0 for both."""
     q, k, v = _qkv(1, 2, 1, 48, 16, 5, t=80)
@@ -408,4 +446,4 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
     q = torch.zeros((1, 2, 4, 16))
     t_flash(q, q, q)
     assert TEB.LAUNCHES == {"bag": 0} and TSS.LAUNCHES == {"softmax": 0}
-    assert TFA.LAUNCHES == {"flash": 0}
+    assert TFA.LAUNCHES == {"flash": 0, "flash_sm90": 0, "flash_f32": 0}
