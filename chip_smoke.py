@@ -13,10 +13,14 @@ libraries at once, into ``build/repro_torch/``), and then
    Graph500-style Kronecker graph ``rmat_graph(65536, 1048576, seed=16)``
    (SCALE 16, edge factor 16) at frontier densities 0.05 and 1.0 for BFS
    (int min), WSP (two lex levels) and weighted PageRank (float sum):
-   candidates and has-pred must be bitwise equal; times each with CUDA
-   events beside its plain version and its memory bound (the bytes the
-   kernel must move, counting of the per-edge inputs only those the
-   round's P reads);
+   the pull and resolve outputs, has-pred included, must be bitwise equal
+   in full, the push candidates on every tile the push sweep runs (it
+   leaves a skipped tile undefined); each case runs once more with the
+   push buffer filled with a NaN payload before the push launch, and
+   must give the same bits; times each kernel with CUDA events beside its
+   plain version and its memory bound (the bytes the kernel must move,
+   counting of the per-edge inputs only those the round's P reads, and of
+   the candidates only those of the tiles that run);
 2. checks the RM-XS work counters against the reference's
    (BENCH_pallas.json) and a small query against the path oracle;
 3. drives the main path — ``engine.run_program`` / ``run_direct`` with
@@ -30,7 +34,10 @@ libraries at once, into ``build/repro_torch/``), and then
    their plain versions once more on the uniform graph's layouts (its
    262,144 row tiles exceed a CUDA grid's y limit), for BFS, PageRank and
    weighted PageRank at frontier densities 0.05 and 1.0.  Those
-   comparison launches are not counted;
+   comparison launches are not counted.  Warm re-runs of three queries go
+   under torch.profiler (device busy time, idle share, top kernels); the
+   weighted-PageRank push one fails if a torch gather runs every
+   iteration (its has-pred probe lives in the resolve kernel);
 4. drives the entry points of the four kernels off the graph main path,
    each at the shapes the repository's configurations give it, with its
    launch count set to 0 just before its phase's driving calls and read
@@ -80,6 +87,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCE = "src/repro_torch/csrc/edge_sweep.cuh"
 MAIN_KERNELS = ("pull", "push", "resolve")
 SLEEP_CYCLES = 4_000_000           # ~2 ms at the H100's 1.98 GHz boost clock
+POISON = 0x7fc0dead                # a NaN payload (as float32)
 REPLACES = {"pull": "src/repro/kernels/edge_reduce.py:165",
             "push": "src/repro/kernels/edge_reduce.py:367",
             "resolve": "src/repro/kernels/edge_reduce.py:553",
@@ -142,6 +150,13 @@ def main(argv) -> int:
               "is false", file=sys.stderr)
         return 2
     torch.use_deterministic_algorithms(True)
+    # ... without its debugging fill of every fresh torch.empty buffer: the
+    # fill would write each wrapper's whole output on every call (the push
+    # sweep's out-rectangle, 1.64 GB per component on rmat16, of which the
+    # kernel writes only the live tiles) and be timed as kernel work.
+    # No kernel reads memory that was not written; the poisoned cases below
+    # check that for the push step.
+    torch.utils.deterministic.fill_uninitialized_memory = False
     # full float32 products in the plain versions and library calls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -220,6 +235,9 @@ def main(argv) -> int:
     record["build_s"] = builds
     log(f"build: {time.perf_counter() - t0:.1f} s wall, per library "
         f"{json.dumps(builds)}")
+    walk = {name: r.walk_attributes() for name, r in rounds.items()}
+    record["walk_attributes"] = walk
+    log(f"push/resolve compiled: {json.dumps(walk)}")
 
     # ------------------------------------------------------------------
     # Phase 1: kernels against their plain versions on the card.
@@ -256,7 +274,8 @@ def main(argv) -> int:
     def kernel_cases(label, g, rnames, reps, plain_reps):
         """Each kernel against its plain version on ``g``'s layouts, for
         the rounds ``rnames`` at frontier densities 0.05 and 1.0: bitwise
-        equality, CUDA-event times and the byte bound."""
+        equality, CUDA-event times and the byte bound; then each case once
+        more from a poisoned push buffer."""
         ein = TS.blocked_ell_cached(g, direction="in")
         eout = TS.blocked_ell_cached(g, direction="out")
         res = TS.push_resolution_cached(g)
@@ -264,14 +283,43 @@ def main(argv) -> int:
         outdeg[:g.n] = g.out_deg.clamp(min=1).float()
         wdeg = torch.ones(ein.n_pad, dtype=torch.float32, device=dev)
         wdeg[:g.n] = TS.w_out_deg(g)
+        # the flat out-tile holding each resolution slot's candidate
+        src = torch.div(res.in2out, eout.width, rounding_mode="floor")
+        out_tile = (torch.div(src, ER.BLOCK_V, rounding_mode="floor")
+                    * (eout.width // ER.BLOCK_E)
+                    + torch.div(res.in2out - src * eout.width, ER.BLOCK_E,
+                                rounding_mode="floor")).reshape(-1)
+        del src
         for rname in rnames:
             for density in (0.05, 1.0):
-                cases.append(kernel_case(label, g, ein, eout, res, outdeg,
-                                         wdeg, rname, density, reps,
+                cases.append(kernel_case(label, g, ein, eout, res, out_tile,
+                                         outdeg, wdeg, rname, density, reps,
                                          plain_reps))
 
-    def kernel_case(label, g, ein, eout, res, outdeg, wdeg, rname, density,
-                    reps, plain_reps):
+    def slots_of(tile_act):
+        """[n_i, n_j] tile activity → [n_pad, width] bool per slot."""
+        return tile_act.repeat_interleave(ER.BLOCK_V, dim=0) \
+            .repeat_interleave(ER.BLOCK_E, dim=1) != 0
+
+    def compare(kname, rname, label, density, ks, ps, where=None):
+        """Bitwise equality of kernel and plain outputs (on the slots
+        ``where`` keeps, when given); returns the max |Δ| there."""
+        err = 0.0
+        for a, b in zip(ks, ps):
+            if where is not None:
+                a = torch.where(where, a, b)
+            if not torch.equal(bits(a), bits(b)):
+                diff = (a.double() - b.double()).abs()
+                raise RuntimeError(
+                    f"{kname} kernel disagrees with its plain version "
+                    f"({rname} on {label}, density {density}): max |Δ| "
+                    f"{float(diff.nan_to_num(float('inf')).max())}")
+            err = max(err, float((a.double() - b.double()).abs()
+                                 .nan_to_num(0.0).max()))
+        return err
+
+    def kernel_case(label, g, ein, eout, res, out_tile, outdeg, wdeg, rname,
+                    density, reps, plain_reps):
         rnd = rounds[rname]
         n_pad = ein.n_pad
         rng = np.random.default_rng(1000 + int(density * 100))
@@ -293,32 +341,52 @@ def main(argv) -> int:
                      ein.mask, active, outdeg, wdeg, st, float(g.n), True)
         push_args = (rnd, t_out, eout.nbrs, eout.weight, eout.capacity,
                      eout.mask, active, outdeg, wdeg, st, float(g.n))
+        res_args = (rnd, t_res, res.valid, res.in2out)
+        res_kw = dict(push_tile_act=t_out, width_out=eout.width, states=st,
+                      need_hp=True)
+        # timed as the main path calls it: has-pred for the push− rounds
+        # (non-idempotent: a sum) only
+        hp_main = any(op in ("sum", "prod") for spec in rnd.plan_specs
+                      for _pos, op in spec)
+        timed_kw = dict(res_kw, need_hp=hp_main)
         k_pull = ER.pull_sweep(*pull_args)
         k_push = ER.push_sweep(*push_args)
-        k_res = ER.resolve_sweep(rnd, t_res, res.valid, res.in2out, k_push)
+        k_res = ER.resolve_sweep(*res_args, k_push, **res_kw)
         torch.cuda.synchronize()
         p_pull = ER._pull_plain(*pull_args)
         p_push = ER._push_plain(*push_args)
-        p_res = ER._resolve_plain(rnd, t_res, res.valid, res.in2out, p_push)
-        errs = {}
-        for kname, ks, ps in (("pull", k_pull, p_pull),
-                              ("push", k_push, p_push),
-                              ("resolve", k_res, p_res)):
-            for a, b in zip(ks, ps):
-                if not torch.equal(bits(a), bits(b)):
-                    diff = (a.double() - b.double()).abs()
-                    raise RuntimeError(
-                        f"{kname} kernel disagrees with its plain version "
-                        f"({rname} on {label}, density {density}): max |Δ| "
-                        f"{float(diff.nan_to_num(float('inf')).max())}")
-            errs[kname] = max(float((a.double() - b.double()).abs()
-                                    .nan_to_num(0.0).max())
-                              for a, b in zip(ks, ps))
-        del p_pull, p_push, p_res
+        p_res = ER._resolve_plain(*res_args, p_push, **res_kw)
+        ran = slots_of(t_out)
+        errs = {"pull": compare("pull", rname, label, density, k_pull,
+                                p_pull),
+                # a skipped tile's push candidates are undefined on the card
+                "push": compare("push", rname, label, density, k_push,
+                                p_push, ran),
+                "resolve": compare("resolve", rname, label, density, k_res,
+                                   p_res)}
+        # Poisoned repeat: the push buffer holds a NaN payload before the
+        # push launch; the push sweep must overwrite every slot of the
+        # tiles it runs, and the resolution must read no other.
+        poisoned = [torch.full(tuple(eout.nbrs.shape), POISON,
+                               dtype=torch.int32, device=dev).view(dt)
+                    for dt in rnd.dtypes]
+        q_push = ER.push_sweep(*push_args, out=poisoned)
+        q_res = ER.resolve_sweep(*res_args, q_push, **res_kw)
+        torch.cuda.synchronize()
+        compare("push (poisoned)", rname, label, density, q_push, p_push,
+                ran)
+        compare("resolve (poisoned)", rname, label, density, q_res, p_res)
+        del p_pull, p_push, p_res, q_push, q_res, poisoned, k_res
         nc, nl = len(rnd.dtypes), rnd.n_levels
         n_tiles_in = int(t_in.sum())
         n_tiles_out = int(t_out.sum())
         n_tiles_res = int(t_res.sum())
+        # candidates the resolve kernel gathers: valid slots whose out-tile
+        # ran (each lies in a processed resolution tile)
+        gathered = int((res.valid.reshape(-1)
+                        & (t_out.reshape(-1).index_select(0, out_tile) != 0))
+                       .sum())
+        del ran
         slot = ER.BLOCK_V * ER.BLOCK_E
         # The least bytes: each input read once, each output written once.
         # A skipped tile reads only its activity word.  A processed slot
@@ -327,37 +395,45 @@ def main(argv) -> int:
         # source index always; the push sweep's destination index, the
         # weight and the capacity only where the round's P reads them.  The
         # vectors read are the frontier, the states and the degree vectors
-        # that P reads.
+        # that P reads.  The push sweep writes its candidates (4 B per slot
+        # and component) only into the tiles t_out runs, so only those are
+        # charged, as the pull sweep's slots are; the resolve kernel reads
+        # a candidate only where its out-tile ran.
         reads = frozenset().union(*map(expr_vars, rnd.p_exprs))
 
         def slot_bytes(*names):
             return 1 + 4 * sum(nm in reads for nm in names)
         vec = n_pad * 4 * (1 + nc + ("outdeg" in reads) + ("wdeg" in reads))
+        n_j_res = res.width // ER.BLOCK_E
         bytes_ = {
             "pull": t_in.numel() * 4 + n_tiles_in * slot * (
                 4 + slot_bytes("w", "c")) + vec
             + n_pad * (ein.width // ER.BLOCK_E) * 4 * (nl + nc),
-            "push": t_out.numel() * 4 + n_tiles_out * slot * slot_bytes(
-                "edst", "w", "c") + vec + eout.nbrs.numel() * 4 * nc,
-            # in2out (4 B) and valid (1 B) per processed slot, then one
-            # candidate word per component for each valid slot gathered
+            "push": t_out.numel() * 4 + n_tiles_out * slot * (
+                slot_bytes("edst", "w", "c") + 4 * nc) + vec,
+            # in2out (4 B) and valid (1 B) per processed slot, the push
+            # activity word of each out-tile that ran, one candidate word
+            # per component for each slot gathered and the levels written;
+            # with has-pred, the states read once and its arrays written
             "resolve": t_res.numel() * 4 + n_tiles_res * slot * 5
-            + int((res.tile_nnz * t_res).sum()) * 4 * nc
-            + n_pad * (res.width // ER.BLOCK_E) * 4 * nl,
+            + n_tiles_out * 4 + gathered * 4 * nc
+            + n_pad * n_j_res * 4 * nl
+            + hp_main * (n_pad * 4 * nc + n_pad * n_j_res * 4 * nc),
         }
         case = {"graph": label, "round": rname, "density": density,
-                "p_reads": sorted(reads),
+                "p_reads": sorted(reads), "poisoned_repeat": "bitwise",
+                "resolve_timed_with_haspred": hp_main,
                 "tiles": {"pull": n_tiles_in, "push": n_tiles_out,
-                          "resolve": n_tiles_res}}
+                          "resolve": n_tiles_res},
+                "candidates_gathered": gathered}
         for kname, fn, plain in (
                 ("pull", lambda: ER.pull_sweep(*pull_args),
                  lambda: ER._pull_plain(*pull_args)),
                 ("push", lambda: ER.push_sweep(*push_args),
                  lambda: ER._push_plain(*push_args)),
-                ("resolve", lambda: ER.resolve_sweep(
-                    rnd, t_res, res.valid, res.in2out, k_push),
-                 lambda: ER._resolve_plain(
-                    rnd, t_res, res.valid, res.in2out, k_push))):
+                ("resolve",
+                 lambda: ER.resolve_sweep(*res_args, k_push, **timed_kw),
+                 lambda: ER._resolve_plain(*res_args, k_push, **timed_kw))):
             case[kname] = {
                 "ms": time_ms(fn, reps),
                 "plain_ms": time_ms(plain, plain_reps),
@@ -587,26 +663,34 @@ def main(argv) -> int:
         log(f"setup {label}: " + json.dumps(times))
         record.setdefault("setup_s", {})[label] = times
 
-    def profiled(label, fn):
+    def profiled(label, fn, no_gather_per_iteration=False):
         """One warm re-run under torch.profiler: device busy time against
-        the wall, and the top ops by device time (to chiprun_out/)."""
+        the wall, the top ops by device time (to chiprun_out/) and torch's
+        gather and index kernels.  With ``no_gather_per_iteration`` the run
+        fails if one of those ran once per iteration or more."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            fn()
+            r = fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         ka = prof.key_averages()
         kern = [e for e in ka if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kern) / 1e3
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+        gathers = {e.key[:60]: {"calls": e.count,
+                                "ms": e.self_device_time_total / 1e3}
+                   for e in kern if "gather" in e.key.lower()
+                   or "index" in e.key.lower()}
         summary = {"wall_ms": wall, "device_busy_ms": busy,
                    "idle_share": max(0.0, 1.0 - busy / wall),
+                   "iterations": r.stats.iterations,
                    "top_device_ms": {e.key[:60]: e.self_device_time_total
-                                     / 1e3 for e in top}}
+                                     / 1e3 for e in top},
+                   "gathers": gathers}
         profiles[label] = summary
         log(f"profile {label}: " + json.dumps(summary))
         try:
@@ -615,6 +699,11 @@ def main(argv) -> int:
                 ka.table(sort_by="self_device_time_total", row_limit=30))
         except OSError:
             pass
+        per_iter = [k for k, v in gathers.items()
+                    if v["calls"] >= r.stats.iterations]
+        if no_gather_per_iteration and per_iter:
+            raise RuntimeError(f"{label}: a torch gather ran every "
+                               f"iteration: {per_iter}")
 
     def run(label, g, cuda_fn, pull_fn, exact):
         torch.cuda.synchronize()
@@ -677,9 +766,12 @@ def main(argv) -> int:
                               engine="pull"), False)
     profiled("BFS rmat16",
              lambda: TE.run_program(g16, progs["BFS"], engine="cuda"))
+    # the push− has-pred probe lives in the resolve kernel: no torch
+    # gather over the in-layout rectangle is left in the iteration
     profiled("weighted PageRank push rmat16",
              lambda: TE.run_direct(g16, weighted_pagerank_kernels(
-                 n, tol=1e-4 / n), engine="cuda", model="push"))
+                 n, tol=1e-4 / n), engine="cuda", model="push"),
+             no_gather_per_iteration=True)
     gu16 = TS.undirected(g16)
     TE.clear_graph_caches(g16)
     torch.cuda.empty_cache()

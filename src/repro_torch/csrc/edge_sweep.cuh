@@ -16,23 +16,33 @@
 // GRAFS_DEFINE_ENTRY_POINTS(Round) to instantiate the kernels behind plain
 // C entry points that ctypes loads (kernels/build.py).
 //
-// Geometry: one 256-thread block per (8 rows × 128 slots) tile, the tile
-// index flattened onto blockIdx.x (the uniform graphs have more than 65,535
-// row tiles, so nothing goes on gridDim.y).  Warp r owns row r of the tile;
-// lane l owns the four contiguous slots 4l..4l+3, loaded as one 16-byte
-// vector per array.  Addresses are computed in 64 bits.
+// Geometry.  Inside a tile (8 rows × 128 slots) warp r owns row r and lane
+// l owns the four contiguous slots 4l..4l+3, loaded as one 16-byte vector
+// per array; addresses are computed in 64 bits.  The pull kernel launches
+// one 256-thread block per tile, the tile index flattened onto blockIdx.x
+// (the uniform graphs have more than 65,535 row tiles, so nothing goes on
+// gridDim.y).  The push and resolve kernels walk the active tiles instead
+// (walk_tiles): a grid of as many blocks as the card holds at once deals
+// the flattened tiles out to its blocks in turn; each thread reads one
+// activity word, each warp ballots its 32, and the block then visits its
+// active tiles of the step in order with the tile geometry above.  No
+// host read and no work list: a skipped tile costs one word.
 //
 // What bounds them on an H100: bytes.  Each processed slot reads its mask
 // and (pull) its source index; of the weight, the capacity, (push) the
 // destination index and the source's degrees it reads only what the
 // round's P reads; then the gathered state words.  It does a handful of
 // operations, far below the 295 operations per byte at which the card's
-// arithmetic would become the limit.  The design keeps the
-// reference's frontier-proportional tile skip (a tile whose activity bit is
-// 0 reads nothing but that bit and writes only identities, condition C6 bit
-// for bit) and coalesced 16-byte loads; it does not yet keep the
-// candidates out of device memory (the push sweep writes its whole
-// out-rectangle, as the reference does).
+// arithmetic would become the limit.  The design keeps the reference's
+// frontier-proportional tile skip and coalesced 16-byte loads, and keeps
+// the push step's bytes proportional to its live tiles: the push sweep
+// writes candidates only into the tiles it runs (a skipped tile's
+// candidates are left undefined), and the resolve kernel reads a
+// candidate only where the push activity of the out-tile holding it says
+// that tile ran (the identity elsewhere, which is what the reference's
+// identity-filled skipped tile would have given it).  The pull kernel
+// still writes identities into every skipped tile's cells (condition C6
+// bit for bit).
 //
 // Reduction order (the plain versions in kernels/edge_reduce.py repeat it):
 // each lane folds its four slots in order, ((v0 ∘ v1) ∘ v2) ∘ v3, then a
@@ -280,102 +290,186 @@ pull_kernel(const int* __restrict__ tile_act, const int* __restrict__ srcs,
   }
 }
 
+// The active-tile walk of the push and resolve kernels.  Tiles are dealt
+// to blocks in turn, tile t to block t mod gridDim.x, so that a run of
+// live tiles (rmat's hub rows fill whole row tiles) spreads over the grid
+// instead of queueing on one block.  At each step thread k of block b
+// reads the activity word of tile (c + k)·gridDim.x + b, each warp's
+// ballot goes to shared memory, and every warp then runs visit(tile) for
+// each active tile of the step, in order, so all 32 lanes of every warp
+// are in each visit (the row reductions shuffle over the whole warp).
+template <class Visit>
+__device__ __forceinline__ void walk_tiles(const int* __restrict__ tile_act,
+                                           long long n_tiles, Visit visit) {
+  constexpr int WARPS = THREADS / 32;
+  __shared__ uint32_t busy[WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long grid = gridDim.x, b = blockIdx.x;
+  for (long long c = 0; c * grid + b < n_tiles; c += THREADS) {
+    const long long t = (c + threadIdx.x) * grid + b;
+    const bool act = t < n_tiles && tile_act[t] != 0;
+    const uint32_t m = __ballot_sync(0xffffffffu, act);
+    if (lane == 0) busy[warp] = m;
+    __syncthreads();
+#pragma unroll 1
+    for (int w = 0; w < WARPS; ++w)
+      for (uint32_t todo = busy[w]; todo; todo &= todo - 1)
+        visit((c + w * 32 + (__ffs(todo) - 1)) * grid + b);
+    __syncthreads();                      // busy[] is rewritten next step
+  }
+}
+
 // Push sweep (<- _push_kernel) over the out-layout: rows are sources, state
 // is read per row.  outs.p = one [n_pad, width] per-edge candidate array per
-// component, identity wherever the slot is padding or the row inactive.
+// component.  Only active tiles are written: there, a padding slot or an
+// inactive row gets the identity and every other slot its P value, bit for
+// bit the reference's; a skipped tile's slots are left as they were.
 template <class R>
 __global__ void __launch_bounds__(THREADS)
-push_kernel(const int* __restrict__ tile_act, const int* __restrict__ dsts,
-            const float* __restrict__ weight,
+push_kernel(const int* __restrict__ tile_act, long long n_tiles,
+            const int* __restrict__ dsts, const float* __restrict__ weight,
             const float* __restrict__ capacity,
             const unsigned char* __restrict__ mask,
             const int* __restrict__ active, const float* __restrict__ outdeg,
             const float* __restrict__ wdeg, Ptrs states, Ptrs outs, int n_j,
             int width, float nv) {
-  const long long tile = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long i = tile / n_j, j = tile % n_j;
-  const long long row = i * BLOCK_V + warp;
-  const long long base = row * width + j * BLOCK_E + lane * SLOTS;
-  if (tile_act[tile] == 0) {
+  auto visit = [&](long long tile) {
+    const int i = (int)tile / n_j, j = (int)tile - i * n_j;  // < 2^21 tiles
+    const long long row = (long long)i * BLOCK_V + warp;
+    const long long base = row * width + j * BLOCK_E + lane * SLOTS;
+    int dv[SLOTS] = {};
+    float wv[SLOTS] = {}, cv[SLOTS] = {};
+    bool live[SLOTS];
+    if constexpr (R::READS_EDST) load4<int4>(dsts + base, dv);
+    if constexpr (R::READS_W) load4<float4>(weight + base, wv);
+    if constexpr (R::READS_C) load4<float4>(capacity + base, cv);
+    load_mask4(mask + base, live);
+    const bool row_act = active[row] != 0;
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) live[s] = live[s] && row_act;
+    float od = 0.f, wd = 0.f;
+    if constexpr (R::READS_OUTDEG) od = outdeg[row];
+    if constexpr (R::READS_WDEG) wd = wdeg[row];
 #pragma unroll
     for (int k = 0; k < R::NC; ++k) {
       const uint32_t id = R::ident(k);
+      const uint32_t nw = static_cast<const uint32_t*>(states.p[k])[row];
+      const bool bot = weq(nw, id, R::comp_float(k));
+      uint32_t o[SLOTS];
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s) {
+        const Env e{wv[s], cv[s], (int)row, dv[s], od, wd, nv};
+        const uint32_t p = bot ? id : R::P(k, e, nw);   // C3: ⊥ stays ⊥
+        o[s] = live[s] ? p : id;
+      }
       *reinterpret_cast<uint4*>(static_cast<uint32_t*>(outs.p[k]) + base) =
-          make_uint4(id, id, id, id);
+          make_uint4(o[0], o[1], o[2], o[3]);
     }
-    return;
-  }
-  int dv[SLOTS] = {};
-  float wv[SLOTS] = {}, cv[SLOTS] = {};
-  bool live[SLOTS];
-  if constexpr (R::READS_EDST) load4<int4>(dsts + base, dv);
-  if constexpr (R::READS_W) load4<float4>(weight + base, wv);
-  if constexpr (R::READS_C) load4<float4>(capacity + base, cv);
-  load_mask4(mask + base, live);
-  const bool row_act = active[row] != 0;
-#pragma unroll
-  for (int s = 0; s < SLOTS; ++s) live[s] = live[s] && row_act;
-  float od = 0.f, wd = 0.f;
-  if constexpr (R::READS_OUTDEG) od = outdeg[row];
-  if constexpr (R::READS_WDEG) wd = wdeg[row];
-#pragma unroll
-  for (int k = 0; k < R::NC; ++k) {
-    const uint32_t id = R::ident(k);
-    const uint32_t nw = static_cast<const uint32_t*>(states.p[k])[row];
-    const bool bot = weq(nw, id, R::comp_float(k));
-    uint32_t o[SLOTS];
-#pragma unroll
-    for (int s = 0; s < SLOTS; ++s) {
-      const Env e{wv[s], cv[s], (int)row, dv[s], od, wd, nv};
-      const uint32_t p = bot ? id : R::P(k, e, nw);   // C3: ⊥ stays ⊥
-      o[s] = live[s] ? p : id;
-    }
-    *reinterpret_cast<uint4*>(static_cast<uint32_t*>(outs.p[k]) + base) =
-        make_uint4(o[0], o[1], o[2], o[3]);
-  }
+  };
+  walk_tiles(tile_act, n_tiles, visit);
 }
 
-// Dst-sorted push resolution (<- _resolve_kernel): each active tile
-// gathers its candidates out of the push sweep's out-rectangles through
-// in2out (inside the tile skip, so skipped tiles read no candidate), then
-// runs the pull kernel's lex chain.  outs.p as the pull kernel's levels.
+// Dst-sorted push resolution (<- _resolve_kernel) over the dst-major
+// rectangle.  Each valid slot of an active tile names its candidate's flat
+// out-layout index x = in2out: out-row x / width_out, out-tile (row / 8,
+// (x mod width_out) / 128).  The candidate is read only where push_act says
+// that out-tile ran (the push sweep left every other tile undefined); the
+// identity stands in elsewhere.  Then the pull kernel's lex chain.  With
+// need_hp, the pull kernel's fused has-pred probe (Def. 4's CPreds ≠ ∅):
+// per component, whether a valid slot's source row x / width_out holds a
+// non-⊥ state.  outs.p = one [n_pad, n_j] array per lex level, then (need_hp)
+// one int32 [n_pad, n_j] has-pred array per component; a skipped tile's
+// cells hold the identities (has-pred 0).
 template <class R>
 __global__ void __launch_bounds__(THREADS)
-resolve_kernel(const int* __restrict__ tile_act,
+resolve_kernel(const int* __restrict__ tile_act, long long n_tiles,
                const unsigned char* __restrict__ valid,
-               const int* __restrict__ in2out, Ptrs cands, Ptrs outs,
-               int n_j, int width) {
-  const long long tile = blockIdx.x;
+               const int* __restrict__ in2out,
+               const int* __restrict__ push_act, Ptrs cands, Ptrs states,
+               Ptrs outs, int n_j, int width, int width_out, int need_hp) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long i = tile / n_j, j = tile % n_j;
-  const long long row = i * BLOCK_V + warp;
-  const long long cell = row * n_j + j;
-  if (tile_act[tile] == 0) {
-    if (lane == 0) write_identities<R>(outs, cell);
-    return;
-  }
-  const long long base = row * width + j * BLOCK_E + lane * SLOTS;
-  int xv[SLOTS];
-  bool ok[SLOTS];
-  load4<int4>(in2out + base, xv);
-  load_mask4(valid + base, ok);
-  uint32_t vals[R::NC][SLOTS];
+  const int n_j_out = width_out / BLOCK_E;
+  auto visit = [&](long long tile) {
+    const int i = (int)tile / n_j, j = (int)tile - i * n_j;
+    const long long row = (long long)i * BLOCK_V + warp;
+    const long long cell = row * n_j + j;
+    const long long base = row * width + j * BLOCK_E + lane * SLOTS;
+    int xv[SLOTS], src[SLOTS];
+    bool ok[SLOTS], ran[SLOTS];
+    load4<int4>(in2out + base, xv);
+    load_mask4(valid + base, ok);
 #pragma unroll
-  for (int k = 0; k < R::NC; ++k) {
-    const uint32_t* cand = static_cast<const uint32_t*>(cands.p[k]);
-    const uint32_t id = R::ident(k);
+    for (int s = 0; s < SLOTS; ++s) {
+      src[s] = xv[s] / width_out;
+      const int col = xv[s] - src[s] * width_out;
+      ran[s] = ok[s] && push_act[(long long)(src[s] / BLOCK_V) * n_j_out +
+                                 col / BLOCK_E] != 0;
+    }
+    uint32_t vals[R::NC][SLOTS];
 #pragma unroll
-    for (int s = 0; s < SLOTS; ++s)
-      vals[k][s] = ok[s] ? cand[(long long)xv[s]] : id;
-  }
-  uint32_t best[R::NLEV];
-  lex_chain<R>(vals, ok, best);
-  if (lane == 0) {
+    for (int k = 0; k < R::NC; ++k) {
+      const uint32_t* cand = static_cast<const uint32_t*>(cands.p[k]);
+      const uint32_t id = R::ident(k);
 #pragma unroll
-    for (int l = 0; l < R::NLEV; ++l)
-      static_cast<uint32_t*>(outs.p[l])[cell] = best[l];
+      for (int s = 0; s < SLOTS; ++s)
+        vals[k][s] = ran[s] ? cand[(long long)xv[s]] : id;
+    }
+    uint32_t best[R::NLEV];
+    lex_chain<R>(vals, ok, best);
+    bool nb[R::NC];
+    if (need_hp) {                          // fused has-pred probe
+#pragma unroll
+      for (int k = 0; k < R::NC; ++k) {
+        const uint32_t* st = static_cast<const uint32_t*>(states.p[k]);
+        bool any = false;
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s)
+          any = any || (ok[s] && !weq(st[src[s]], R::ident(k),
+                                      R::comp_float(k)));
+        nb[k] = __any_sync(0xffffffffu, any);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int l = 0; l < R::NLEV; ++l)
+        static_cast<uint32_t*>(outs.p[l])[cell] = best[l];
+      if (need_hp)
+        for (int k = 0; k < R::NC; ++k)
+          static_cast<int*>(outs.p[R::NLEV + k])[cell] = nb[k] ? 1 : 0;
+    }
+  };
+  // The cells of skipped tiles get the identities (has-pred 0) in one
+  // grid-stride pass over the cells, coalesced; the walk writes the rest.
+  const int n_cells = (int)n_tiles * BLOCK_V;             // < 2^24 cells
+  for (int q = blockIdx.x * THREADS + threadIdx.x; q < n_cells;
+       q += gridDim.x * THREADS) {
+    const int row = q / n_j, j = q - row * n_j;
+    if (tile_act[(row / BLOCK_V) * n_j + j] == 0) {
+      write_identities<R>(outs, q);
+      if (need_hp)
+        for (int k = 0; k < R::NC; ++k)
+          static_cast<int*>(outs.p[R::NLEV + k])[q] = 0;
+    }
   }
+  walk_tiles(tile_act, n_tiles, visit);
+}
+
+// The walking kernels' grid: as many blocks as the card holds at once
+// (SMs × resident blocks of `kernel`, asked once per kernel and cached by
+// the entry point), never more than the steps of THREADS tiles need.
+template <class K>
+inline int resident_blocks(K kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+inline int walk_grid(int resident, long long n_tiles) {
+  const long long chunks = (n_tiles + THREADS - 1) / THREADS;
+  return (int)(chunks < 1 ? 1 : (chunks < resident ? chunks : resident));
 }
 
 inline Ptrs pack(void* const* p, int n) {
@@ -387,7 +481,9 @@ inline Ptrs pack(void* const* p, int n) {
 }  // namespace grafs
 
 // Plain C entry points of one round's library; each returns the
-// cudaGetLastError() of its launch (0 = launched).
+// cudaGetLastError() of its launch (0 = launched).  grafs_walk_attributes
+// writes the push and resolve kernels' registers per thread and grids
+// (push registers, push grid, resolve registers, resolve grid).
 #define GRAFS_DEFINE_ENTRY_POINTS(R)                                          \
   extern "C" int grafs_pull(const void* tile_act, const void* srcs,          \
                             const void* weight, const void* capacity,        \
@@ -413,23 +509,43 @@ inline Ptrs pack(void* const* p, int n) {
                             void* const* states, void* const* outs,          \
                             int n_tiles, int n_j, int width, float nv,       \
                             void* stream) {                                  \
-    grafs::push_kernel<R><<<n_tiles, grafs::THREADS, 0,                      \
-                            (cudaStream_t)stream>>>(                         \
-        (const int*)tile_act, (const int*)dsts, (const float*)weight,        \
-        (const float*)capacity, (const unsigned char*)mask,                  \
-        (const int*)active, (const float*)outdeg, (const float*)wdeg,        \
+    static int resident = 0;                                                 \
+    if (!resident) resident = grafs::resident_blocks(grafs::push_kernel<R>); \
+    grafs::push_kernel<R><<<grafs::walk_grid(resident, n_tiles),             \
+                            grafs::THREADS, 0, (cudaStream_t)stream>>>(      \
+        (const int*)tile_act, n_tiles, (const int*)dsts,                     \
+        (const float*)weight, (const float*)capacity,                        \
+        (const unsigned char*)mask, (const int*)active,                      \
+        (const float*)outdeg, (const float*)wdeg,                            \
         grafs::pack(states, R::NC), grafs::pack(outs, R::NC), n_j, width,    \
         nv);                                                                 \
     return (int)cudaGetLastError();                                          \
   }                                                                          \
   extern "C" int grafs_resolve(const void* tile_act, const void* valid,      \
-                               const void* in2out, void* const* cands,       \
+                               const void* in2out, const void* push_act,     \
+                               void* const* cands, void* const* states,      \
                                void* const* outs, int n_tiles, int n_j,      \
-                               int width, void* stream) {                    \
-    grafs::resolve_kernel<R><<<n_tiles, grafs::THREADS, 0,                   \
-                               (cudaStream_t)stream>>>(                      \
-        (const int*)tile_act, (const unsigned char*)valid,                   \
-        (const int*)in2out, grafs::pack(cands, R::NC),                       \
-        grafs::pack(outs, R::NLEV), n_j, width);                             \
+                               int width, int width_out, int need_hp,        \
+                               void* stream) {                               \
+    static int resident = 0;                                                 \
+    if (!resident)                                                           \
+      resident = grafs::resident_blocks(grafs::resolve_kernel<R>);           \
+    grafs::resolve_kernel<R><<<grafs::walk_grid(resident, n_tiles),          \
+                               grafs::THREADS, 0, (cudaStream_t)stream>>>(   \
+        (const int*)tile_act, n_tiles, (const unsigned char*)valid,          \
+        (const int*)in2out, (const int*)push_act, grafs::pack(cands, R::NC), \
+        grafs::pack(states, need_hp ? R::NC : 0),                            \
+        grafs::pack(outs, R::NLEV + (need_hp ? R::NC : 0)), n_j, width,      \
+        width_out, need_hp);                                                 \
+    return (int)cudaGetLastError();                                          \
+  }                                                                          \
+  extern "C" int grafs_walk_attributes(int* out) {                           \
+    cudaFuncAttributes a;                                                    \
+    cudaFuncGetAttributes(&a, grafs::push_kernel<R>);                        \
+    out[0] = a.numRegs;                                                      \
+    out[1] = grafs::resident_blocks(grafs::push_kernel<R>);                  \
+    cudaFuncGetAttributes(&a, grafs::resolve_kernel<R>);                     \
+    out[2] = a.numRegs;                                                      \
+    out[3] = grafs::resident_blocks(grafs::resolve_kernel<R>);               \
     return (int)cudaGetLastError();                                          \
   }

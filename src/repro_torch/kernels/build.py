@@ -111,8 +111,10 @@ def _declare_round(lib):
     vp, i32, f32 = _VP, _I32, _F32
     lib.grafs_pull.argtypes = [vp] * 8 + [vp, vp, i32, i32, i32, f32, i32, vp]
     lib.grafs_push.argtypes = [vp] * 8 + [vp, vp, i32, i32, i32, f32, vp]
-    lib.grafs_resolve.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp]
-    for fn in (lib.grafs_pull, lib.grafs_push, lib.grafs_resolve):
+    lib.grafs_resolve.argtypes = [vp] * 7 + [i32] * 5 + [vp]
+    lib.grafs_walk_attributes.argtypes = [vp]
+    for fn in (lib.grafs_pull, lib.grafs_push, lib.grafs_resolve,
+               lib.grafs_walk_attributes):
         fn.restype = i32
     return lib
 

@@ -10,11 +10,19 @@ instantiated per fused round from the round's synthesized P expressions by
                     with the C3 guard, run each plan's lexicographic chain and
                     write one candidate per (row, slot tile) per level, plus
                     the fused has-pred probe.
-``push_sweep``    — the push sweep (replaces ``_push_kernel``): identity-filled
-                    per-edge candidates over the out-layout.
+``push_sweep``    — the push sweep (replaces ``_push_kernel``): per-edge
+                    candidates over the out-layout, written on the card only
+                    into the tiles the frontier keeps.
 ``resolve_sweep`` — the dst-sorted push resolution (replaces
-                    ``_resolve_kernel``): gather candidates through ``in2out``
-                    inside the tile skip, then the pull sweep's lex chain.
+                    ``_resolve_kernel``): gather candidates through
+                    ``in2out`` inside the tile skip, only from out-tiles the
+                    push sweep ran, then the pull sweep's lex chain, plus the
+                    fused has-pred probe of the push− models.
+
+The push and resolve kernels walk only the active tiles: a grid sized to
+the card deals the tiles to its blocks in turn, each block reads its
+tiles' activity words and a ballot hands it the active ones, so a push
+iteration moves its live tiles and not the whole out-rectangle.
 
 ``ell_level_reduce`` (replaces ``_level_kernel``) is the per-level reference
 sweep outside the main path: one lex level per launch into a [n_pad]
@@ -125,6 +133,15 @@ class SweepRound:
             from repro_torch.kernels import build
             self._lib = build.round_library(self.source())
         return self._lib
+
+    def walk_attributes(self) -> dict:
+        """Registers per thread and grid (blocks) of the push and resolve
+        kernels, which walk the active tiles on a grid sized to the card
+        (needs the card)."""
+        out = (ctypes.c_int * 4)()
+        _raise_on(self.library().grafs_walk_attributes(out), "attributes")
+        return {"push_registers": out[0], "push_grid": out[1],
+                "resolve_registers": out[2], "resolve_grid": out[3]}
 
 
 def _scalar(ident, dtype):
@@ -292,14 +309,27 @@ def _pull_plain(rnd, tile_act, srcs, weight, capacity, mask, active, outdeg,
 # ---------------------------------------------------------------------------
 
 def push_sweep(rnd: SweepRound, tile_act, dsts, weight, capacity, mask,
-               active, outdeg, wdeg, states, nv: float):
+               active, outdeg, wdeg, states, nv: float, out=None):
     """Per-edge candidates of the push sweep over the out-layout: one
-    [n_pad, width] array per component (``rnd.comps_order``), the identity
-    wherever the slot is padding, the source row inactive, or the tile
-    skipped."""
+    [n_pad, width] array per component (``rnd.comps_order``).  On every tile
+    that ``tile_act`` keeps, a slot holds its P value, or the identity where
+    the slot is padding or the source row inactive.
+
+    On the card the kernel writes nothing to a skipped tile: its candidates
+    are undefined (whatever ``out`` held, or the fresh allocation's bytes),
+    and a reader must go through ``tile_act`` as ``resolve_sweep`` does.
+    ``out``, one preallocated [n_pad, width] array per component, receives
+    the candidates; a caller that reads the whole rectangle passes it
+    identity-filled.  The plain version fills skipped tiles with
+    identities."""
     if not dsts.is_cuda:
-        return _push_plain(rnd, tile_act, dsts, weight, capacity, mask,
-                           active, outdeg, wdeg, states, nv)
+        got = _push_plain(rnd, tile_act, dsts, weight, capacity, mask,
+                          active, outdeg, wdeg, states, nv)
+        if out is None:
+            return got
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return list(out)
     n_pad, width = dsts.shape
     _check_layout(dsts, tile_act)
     for name, t, dt in (("dsts", dsts, torch.int32),
@@ -312,18 +342,24 @@ def push_sweep(rnd: SweepRound, tile_act, dsts, weight, capacity, mask,
     _check("wdeg", wdeg, torch.float32, (n_pad,))
     for k, (st, dt) in enumerate(zip(states, rnd.dtypes)):
         _check(f"state[{k}]", st, dt, (n_pad,))
+    if out is None:
+        out = [torch.empty((n_pad, width), dtype=dt, device=dsts.device)
+               for dt in rnd.dtypes]
+    elif len(out) != len(rnd.dtypes):
+        raise ValueError(f"out needs {len(rnd.dtypes)} arrays, got "
+                         f"{len(out)}")
+    for k, (o, dt) in enumerate(zip(out, rnd.dtypes)):
+        _check(f"out[{k}]", o, dt, (n_pad, width))
     lib = rnd.library()
     n_i, n_j = n_pad // BLOCK_V, width // BLOCK_E
-    outs = [torch.empty((n_pad, width), dtype=dt, device=dsts.device)
-            for dt in rnd.dtypes]
     status = lib.grafs_push(
         tile_act.data_ptr(), dsts.data_ptr(), weight.data_ptr(),
         capacity.data_ptr(), mask.data_ptr(), active.data_ptr(),
-        outdeg.data_ptr(), wdeg.data_ptr(), _ptrs(states), _ptrs(outs),
+        outdeg.data_ptr(), wdeg.data_ptr(), _ptrs(states), _ptrs(out),
         n_i * n_j, n_j, width, float(nv), _stream(dsts))
     _raise_on(status, "push")
     LAUNCHES["push"] += 1
-    return outs
+    return list(out)
 
 
 def _push_plain(rnd, tile_act, dsts, weight, capacity, mask, active, outdeg,
@@ -356,45 +392,105 @@ def _push_plain(rnd, tile_act, dsts, weight, capacity, mask, active, outdeg,
 # The dst-sorted push resolution (replaces edge_reduce.py::_resolve_kernel).
 # ---------------------------------------------------------------------------
 
-def resolve_sweep(rnd: SweepRound, tile_act, valid, in2out, cands):
+def _check_out_layout(cands, push_tile_act, width_out, states, need_hp):
+    """The out-layout that ``in2out`` indexes: every candidate array is
+    [n_pad_out, width_out] and ``push_tile_act`` its (8, 128) tile grid."""
+    if width_out <= 0 or width_out % BLOCK_E:
+        raise ValueError(f"width_out {width_out} is not a positive multiple "
+                         f"of {BLOCK_E}")
+    n_out = cands[0].shape[0]
+    for k, c in enumerate(cands):
+        if tuple(c.shape) != (n_out, width_out):
+            raise ValueError(f"cands[{k}] has shape {tuple(c.shape)}, not "
+                             f"(n_pad, width_out) = ({n_out}, {width_out})")
+    want = (n_out // BLOCK_V, width_out // BLOCK_E)
+    if tuple(push_tile_act.shape) != want:
+        raise ValueError(f"push_tile_act has shape "
+                         f"{tuple(push_tile_act.shape)}, but the out-layout "
+                         f"{n_out}×{width_out} has {want} tiles")
+    if need_hp:
+        for k, st in enumerate(states):
+            if tuple(st.shape) != (n_out,):
+                raise ValueError(f"state[{k}] must have shape ({n_out},), "
+                                 f"got {tuple(st.shape)}")
+
+
+def resolve_sweep(rnd: SweepRound, tile_act, valid, in2out, cands,
+                  push_tile_act, width_out: int, states=(),
+                  need_hp: bool = False):
     """Per-tile candidates of the sorted resolution over the dst-major
-    rectangle: gathers ``cands[k].flat[in2out]`` where ``valid`` inside
-    active tiles, then the pull sweep's lex chain.  Returns one [n_pad, n_j]
-    array per lex level, exactly like ``pull_sweep``."""
+    rectangle: on each tile that ``tile_act`` keeps, every ``valid`` slot
+    gathers ``cands[k].flat[in2out]`` where the out-tile holding that index
+    ran (``push_tile_act`` over the [n_pad, width_out] out-layout) and takes
+    the identity elsewhere, then the pull sweep's lex chain.  Returns one
+    [n_pad, n_j] array per lex level, exactly like ``pull_sweep``; with
+    ``need_hp``, then one int32 [n_pad, n_j] has-pred array per component:
+    1 where a valid slot's source row (``in2out // width_out``) holds a
+    non-⊥ state in ``states`` (``rnd.comps_order``).  The probe covers the
+    tiles ``tile_act`` keeps (a skipped tile's cells are 0), so a caller
+    wanting the reference's booleans passes every live tile."""
+    if len(cands) != len(rnd.dtypes) or (need_hp and
+                                         len(states) != len(rnd.dtypes)):
+        raise ValueError(f"resolve_sweep needs {len(rnd.dtypes)} candidate "
+                         f"arrays (and states with need_hp), got "
+                         f"{len(cands)} and {len(states)}")
+    _check_out_layout(cands, push_tile_act, width_out, states, need_hp)
     if not valid.is_cuda:
-        return _resolve_plain(rnd, tile_act, valid, in2out, cands)
+        return _resolve_plain(rnd, tile_act, valid, in2out, cands,
+                              push_tile_act, width_out, states, need_hp)
     n_pad, width = valid.shape
     _check_layout(valid, tile_act)
     _check("valid", valid, torch.bool, (n_pad, width))
     _check("in2out", in2out, torch.int32, (n_pad, width))
+    _check("push_tile_act", push_tile_act, torch.int32)
     for k, (c, dt) in enumerate(zip(cands, rnd.dtypes)):
         _check(f"cands[{k}]", c, dt)
+    if need_hp:
+        for k, (st, dt) in enumerate(zip(states, rnd.dtypes)):
+            _check(f"state[{k}]", st, dt)
     lib = rnd.library()
     n_i, n_j = n_pad // BLOCK_V, width // BLOCK_E
     outs = [torch.empty((n_pad, n_j), dtype=rnd.dtypes[pos],
                         device=valid.device)
             for spec in rnd.plan_specs for pos, _op in spec]
+    if need_hp:
+        outs += [torch.empty((n_pad, n_j), dtype=torch.int32,
+                             device=valid.device) for _ in states]
     status = lib.grafs_resolve(
         tile_act.data_ptr(), valid.data_ptr(), in2out.data_ptr(),
-        _ptrs(cands), _ptrs(outs), n_i * n_j, n_j, width, _stream(valid))
+        push_tile_act.data_ptr(), _ptrs(cands),
+        _ptrs(states if need_hp else ()), _ptrs(outs), n_i * n_j, n_j,
+        width, int(width_out), int(need_hp), _stream(valid))
     _raise_on(status, "resolve")
     LAUNCHES["resolve"] += 1
     return outs
 
 
-def _resolve_plain(rnd, tile_act, valid, in2out, cands):
+def _resolve_plain(rnd, tile_act, valid, in2out, cands, push_tile_act,
+                   width_out, states=(), need_hp=False):
     n_pad, width = valid.shape
     flat = [c.reshape(-1) for c in cands]
+    ran_tiles = push_tile_act.reshape(-1) != 0
+    n_j_out = width_out // BLOCK_E
     parts = []
     for r0, r1 in _row_chunks(n_pad, width):
         ok = valid[r0:r1]
         idx = in2out[r0:r1].long()
-        vals = [torch.where(ok, f[idx], ident)
+        src = torch.div(idx, width_out, rounding_mode="floor")
+        out_tile = (torch.div(src, BLOCK_V, rounding_mode="floor") * n_j_out
+                    + torch.div(idx - src * width_out, BLOCK_E,
+                                rounding_mode="floor"))
+        ran = ok & ran_tiles[out_tile]
+        vals = [torch.where(ran, f[idx], ident)
                 for f, ident in zip(flat, rnd.idents)]
         outs = _lex_chain(rnd, vals, ok)
+        if need_hp:
+            for st, ident in zip(states, rnd.idents):
+                nb = (ok & (st[src] != ident)).to(torch.int32)
+                outs.append(_tile_reduce("max", nb))
         live = _tiles_to_rows(tile_act[r0 // BLOCK_V:r1 // BLOCK_V])
         idents = [rnd.idents[pos] for spec in rnd.plan_specs
-                  for pos, _op in spec]
+                  for pos, _op in spec] + [0] * (len(outs) - rnd.n_levels)
         parts.append([torch.where(live, o, i) for o, i in zip(outs, idents)])
     return [torch.cat(cols) for cols in zip(*parts)]
 
@@ -627,14 +723,19 @@ def fused_ell_push_sweep(rnd: SweepRound, dsts, weight, capacity, mask,
                          tile_act, states: dict, active, outdeg, wdeg,
                          nv: float, need_haspred: bool = False,
                          resolution: str = "sorted", res=None,
-                         res_src_row=None, return_candidates=False):
+                         return_candidates=False):
     """The push sweep plus its dst-keyed resolution: ``"sorted"`` (``res``
     = ``(in2out, valid, res_tile_act)``) runs the resolve kernel and the
     pull sweep's fold; ``"scatter"`` is the reference full-rectangle
-    scatter in torch.  ``res_src_row`` (``in2out // width``, the out-row of
-    each resolution slot) may be passed in by a caller that sweeps one
-    graph repeatedly; the sorted has-pred probe computes it otherwise.
-    Returns ``(red, hp)`` like ``fused_ell_sweep``."""
+    scatter in torch.  Returns ``(red, hp)`` like ``fused_ell_sweep``.
+
+    Under ``"sorted"`` the has-pred probe is the resolve kernel's: it covers
+    the resolution tiles ``res_tile_act`` keeps, so the push− path passes
+    the static activity (every live tile) and gets the reference's
+    booleans.  ``"scatter"`` reads every candidate, so its push buffers
+    start identity-filled; its has-pred is a scatter-OR in torch.  With
+    ``return_candidates`` the [n_pad, width] candidates are appended; under
+    ``"sorted"`` on the card a skipped tile's are undefined."""
     if resolution not in ("scatter", "sorted"):
         raise ValueError(f"resolution must be 'scatter' or 'sorted', "
                          f"got {resolution!r}")
@@ -643,12 +744,23 @@ def fused_ell_push_sweep(rnd: SweepRound, dsts, weight, capacity, mask,
                          "res_tile_act) from structure.PushResolution")
     n_pad, width = dsts.shape
     st = [states[c] for c in rnd.comps_order]
+    filled = None
+    if resolution == "scatter":
+        filled = [torch.full((n_pad, width), ident, dtype=dt,
+                             device=dsts.device)
+                  for dt, ident in zip(rnd.dtypes, rnd.idents)]
     cands = push_sweep(rnd, tile_act, dsts, weight, capacity, mask,
-                       active.to(torch.int32), outdeg, wdeg, st, nv)
+                       active.to(torch.int32), outdeg, wdeg, st, nv,
+                       out=filled)
+    hp = {}
     if resolution == "sorted":
         in2out, valid, res_tile_act = res
-        outs = resolve_sweep(rnd, res_tile_act, valid, in2out, cands)
-        red, _ = _fold_tile_candidates(rnd, outs)
+        outs = resolve_sweep(rnd, res_tile_act, valid, in2out, cands,
+                             tile_act, width, st, need_haspred)
+        red, oi = _fold_tile_candidates(rnd, outs)
+        if need_haspred:
+            for k, c in enumerate(rnd.comps_order):
+                hp[c] = outs[oi + k].amax(dim=1) > 0
     else:
         flat_dst = dsts.reshape(-1)
         red = {}
@@ -666,24 +778,11 @@ def fused_ell_push_sweep(rnd: SweepRound, dsts, weight, capacity, mask,
                 red[c] = prim
                 if li + 1 < len(spec):
                     tie = tie & (vals == prim[flat_dst.long()])
-    hp = {}
-    if need_haspred:
-        # Def. 4's CPreds ≠ ∅ probe from "source state non-⊥" over real
-        # out-edges, in torch on data already resident.
-        for k, c in enumerate(rnd.comps_order):
-            ident = rnd.idents[k]
-            if resolution == "sorted":
-                # the out-slot in2out[v, k] lies in row in2out // width: the
-                # same booleans as gathering the rectangle's nonbot flags
-                in2out, valid, _ = res
-                if res_src_row is None:
-                    res_src_row = torch.div(in2out, width,
-                                            rounding_mode="floor")
-                src_st = states[c].index_select(0, res_src_row.reshape(-1))
-                hp[c] = (valid & (src_st.reshape(valid.shape) != ident)) \
-                    .any(dim=1)
-            else:
-                nonbot = (mask & (states[c][:, None] != ident)) \
+        if need_haspred:
+            # Def. 4's CPreds ≠ ∅ probe from "source state non-⊥" over real
+            # out-edges, as a scatter-OR in torch.
+            for k, c in enumerate(rnd.comps_order):
+                nonbot = (mask & (states[c][:, None] != rnd.idents[k])) \
                     .to(torch.int32)
                 hp[c] = segment.scatter_reduce(
                     "or", torch.zeros((n_pad,), dtype=torch.int32,

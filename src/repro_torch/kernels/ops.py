@@ -164,14 +164,13 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
 
     tiles_static = (first.tile_nnz > 0).to(torch.int32)
     # A non-idempotent round sweeps every tile each iteration, so under
-    # sorted resolution its resolution-tile activity and the has-pred
-    # probe's source rows are the same every iteration: computed once here.
-    res_static, res_src_row = None, None
+    # sorted resolution its resolution-tile activity is the same every
+    # iteration (every live tile, which is also what the resolve kernel's
+    # has-pred probe must cover): computed once here.
+    res_static = None
     if sorted_res and not idempotent:
         res_static = _er.resolution_tile_activity(res.contrib, tiles_static,
                                                   res.tile_nnz)
-        res_src_row = torch.div(res.in2out, ell["push"].width,
-                                rounding_mode="floor")
 
     def sweep(d, state_d, active_i32, tile_act, need_hp):
         """One sweep + its resolution → (red, hp, resolve work, gather
@@ -188,8 +187,7 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
                                              res.tile_nnz)
             red, hp = _er.fused_ell_push_sweep(
                 rnd, *args, resolution="sorted",
-                res=(res.in2out, res.valid, res_act),
-                res_src_row=res_src_row)
+                res=(res.in2out, res.valid, res_act))
             res_w = (res.tile_nnz.to(torch.int64) * res_act).sum()
             return red, hp, res_w, res_w
         red, hp = _er.fused_ell_push_sweep(rnd, *args, resolution="scatter")

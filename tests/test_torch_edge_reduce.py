@@ -164,7 +164,8 @@ def test_push_and_resolve_plain_match_pallas(name, density):
                            float(jg.n))
     for g, w in zip(cands, want):                 # elementwise: bitwise
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    outs = TER.resolve_sweep(rnd, t_res_act, tres.valid, tres.in2out, cands)
+    outs = TER.resolve_sweep(rnd, t_res_act, tres.valid, tres.in2out, cands,
+                             t_tile, tell.width)
     red, _ = TER._fold_tile_candidates(rnd, outs)
     loose = [rnd.dtypes[rnd.comps_order.index(c)].is_floating_point
              and op == "sum" for spec in rnd.plans for c, op in spec]
@@ -194,9 +195,181 @@ def test_sorted_push_equals_pull_bitwise(name):
                            float(tg.n))
     got = TER.resolve_sweep(
         rnd, TER.resolution_tile_activity(res.contrib, p_tile, res.tile_nnz),
-        res.valid, res.in2out, cands)
+        res.valid, res.in2out, cands, p_tile, eout.width)
     for a, b in zip(got, pull):
         assert torch.equal(a, b)
+
+
+def _push_inputs(name, density):
+    """The push side of one round on the RM-XS graph: (rnd, out-layout,
+    resolution, push tile activity, resolution tile activity, states, push
+    sweep arguments)."""
+    _jg, tg, _jc, _jp, rnd, active, outdeg, wdeg, states = _setup(name,
+                                                                  density)
+    eout = TS.to_blocked_ell(tg, direction="out")
+    res = TS.to_push_resolution(tg)
+    p_tile = TER.tile_activity_push(eout.tile_nnz, _t(active))
+    r_tile = TER.resolution_tile_activity(res.contrib, p_tile, res.tile_nnz)
+    st = [_t(states[c]) for c in rnd.comps_order]
+    args = (rnd, p_tile, eout.nbrs, eout.weight, eout.capacity, eout.mask,
+            _t(active), _t(outdeg), _t(wdeg), st, float(tg.n))
+    return rnd, eout, res, p_tile, r_tile, st, args
+
+
+@pytest.mark.parametrize("name", ROUNDS)
+def test_push_sorted_haspred_matches_pallas(name):
+    """The push− has-pred of the sorted path, now computed inside the
+    resolve sweep over the static resolution-tile activity (every live
+    tile), equals the JAX reference's ``hp`` bit for bit."""
+    jg, tg, jc, jp, rnd, active, outdeg, wdeg, states = _setup(name, 1.0)
+    from repro.kernels.ops import _plan_levels
+    levels = tuple(tuple(_plan_levels(p)) for p in jp)
+    ell = JS.to_blocked_ell(jg, direction="out")
+    res = JS.to_push_resolution(jg)
+    ones = np.zeros_like(active)
+    ones[:jg.n] = 1
+    tiles = (np.asarray(ell.tile_nnz) > 0).astype(np.int32)
+    res_act = JER.resolution_tile_activity(res.contrib, jnp.asarray(tiles),
+                                           res.tile_nnz)
+    by = {cr.idx: cr for cr in jc}
+    _red, want_hp = JER.fused_ell_push_sweep(
+        ell.nbrs, ell.weight, ell.capacity, ell.mask, jnp.asarray(tiles),
+        {c: jnp.asarray(s) for c, s in states.items()}, jnp.asarray(ones),
+        jnp.asarray(outdeg), plans=levels,
+        idents={c: by[c].ident for c in by},
+        p_fns={c: by[c].p_fn for c in by}, nv=float(jg.n),
+        need_haspred=True, wdeg=jnp.asarray(wdeg), resolution="sorted",
+        res=(res.in2out, res.valid, res_act))
+    tell = TS.to_blocked_ell(tg, direction="out")
+    tres = TS.to_push_resolution(tg)
+    t_tiles = (tell.tile_nnz > 0).to(torch.int32)
+    t_res_act = TER.resolution_tile_activity(tres.contrib, t_tiles,
+                                             tres.tile_nnz)
+    _red, hp = TER.fused_ell_push_sweep(
+        rnd, tell.nbrs, tell.weight, tell.capacity, tell.mask, t_tiles,
+        {c: _t(s) for c, s in states.items()}, _t(ones), _t(outdeg),
+        _t(wdeg), float(tg.n), need_haspred=True, resolution="sorted",
+        res=(tres.in2out, tres.valid, t_res_act))
+    assert sorted(hp) == sorted(want_hp) == sorted(rnd.comps_order)
+    for c in rnd.comps_order:
+        np.testing.assert_array_equal(hp[c].numpy(), np.asarray(want_hp[c]))
+
+
+@pytest.mark.parametrize("density", [0.05, 1.0])
+@pytest.mark.parametrize("name", ROUNDS)
+def test_push_scatter_matches_pallas(name, density):
+    """The scatter resolution (its push buffers identity-filled through
+    ``out=``) against the reference's scatter path, has-pred included."""
+    jg, tg, jc, jp, rnd, active, outdeg, wdeg, states = _setup(name, density)
+    from repro.kernels.ops import _plan_levels
+    levels = tuple(tuple(_plan_levels(p)) for p in jp)
+    ell = JS.to_blocked_ell(jg, direction="out")
+    tile_act = JER.tile_activity_push(ell.tile_nnz, jnp.asarray(active), 8)
+    by = {cr.idx: cr for cr in jc}
+    want_red, want_hp = JER.fused_ell_push_sweep(
+        ell.nbrs, ell.weight, ell.capacity, ell.mask, tile_act,
+        {c: jnp.asarray(s) for c, s in states.items()}, jnp.asarray(active),
+        jnp.asarray(outdeg), plans=levels,
+        idents={c: by[c].ident for c in by},
+        p_fns={c: by[c].p_fn for c in by}, nv=float(jg.n),
+        need_haspred=True, wdeg=jnp.asarray(wdeg), resolution="scatter")
+    tell = TS.to_blocked_ell(tg, direction="out")
+    red, hp = TER.fused_ell_push_sweep(
+        rnd, tell.nbrs, tell.weight, tell.capacity, tell.mask,
+        TER.tile_activity_push(tell.tile_nnz, _t(active)),
+        {c: _t(s) for c, s in states.items()}, _t(active), _t(outdeg),
+        _t(wdeg), float(tg.n), need_haspred=True, resolution="scatter")
+    loose = [rnd.dtypes[rnd.comps_order.index(c)].is_floating_point
+             and op == "sum" for spec in rnd.plans for c, op in spec]
+    _assert_levels([red[c].numpy() for spec in rnd.plans for c, _ in spec],
+                   [np.asarray(want_red[c]) for spec in rnd.plans
+                    for c, _ in spec], loose)
+    for c in rnd.comps_order:
+        np.testing.assert_array_equal(hp[c].numpy(), np.asarray(want_hp[c]))
+
+
+def _resolve_all_candidates(rnd, tile_act, valid, in2out, cands, states):
+    """The resolution as it was before the push activity became an
+    argument: every valid slot reads its candidate, whatever tile it is in,
+    and the has-pred probe gathers the source rows' states in torch."""
+    n_pad, width_out = cands[0].shape
+    every = torch.ones((n_pad // TER.BLOCK_V, width_out // TER.BLOCK_E),
+                       dtype=torch.int32)
+    outs = TER._resolve_plain(rnd, tile_act, valid, in2out, cands, every,
+                              width_out)
+    src = torch.div(in2out.long(), width_out, rounding_mode="floor")
+    live = TER._tiles_to_rows(tile_act)
+    for st, ident in zip(states, rnd.idents):
+        nb = (valid & (st[src] != ident)).to(torch.int32)
+        outs.append(torch.where(live, TER._tile_reduce("max", nb), 0))
+    return outs
+
+
+@pytest.mark.parametrize("density", [0.05, 0.3, 1.0])
+@pytest.mark.parametrize("name", ROUNDS)
+def test_resolve_push_activity_args_keep_outputs(name, density):
+    """With the push tile activity and ``width_out``, the plain resolution
+    gives what it gave when it read every candidate of the identity-filled
+    push buffer, has-pred included."""
+    rnd, eout, res, p_tile, r_tile, st, args = _push_inputs(name, density)
+    cands = TER.push_sweep(*args)
+    got = TER.resolve_sweep(rnd, r_tile, res.valid, res.in2out, cands,
+                            p_tile, eout.width, st, need_hp=True)
+    want = _resolve_all_candidates(rnd, r_tile, res.valid, res.in2out, cands,
+                                   st)
+    assert len(got) == rnd.n_levels + len(rnd.comps_order)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("density", [0.05, 0.3])
+@pytest.mark.parametrize("name", ROUNDS)
+def test_resolve_ignores_poisoned_skipped_tiles(name, density):
+    """A push buffer whose skipped tiles hold a NaN payload (as the card
+    leaves them undefined) resolves bit for bit like the identity-filled
+    one."""
+    rnd, eout, res, p_tile, r_tile, st, args = _push_inputs(name, density)
+    assert bool((p_tile == 0).any() & (eout.tile_nnz > 0).any())
+    cands = TER.push_sweep(*args)
+    skipped = ~TER._tiles_to_rows(p_tile).repeat_interleave(TER.BLOCK_E,
+                                                            dim=1)
+    poison = torch.tensor(0x7fc0dead, dtype=torch.int32)
+    poisoned = [torch.where(skipped, poison, c.view(torch.int32))
+                .view(c.dtype) for c in cands]
+    assert all(not torch.equal(a, b) for a, b in zip(poisoned, cands))
+    for c, p in zip(cands, poisoned):
+        assert torch.equal(c[~skipped], p[~skipped])
+    want = TER.resolve_sweep(rnd, r_tile, res.valid, res.in2out, cands,
+                             p_tile, eout.width, st, need_hp=True)
+    got = TER.resolve_sweep(rnd, r_tile, res.valid, res.in2out, poisoned,
+                            p_tile, eout.width, st, need_hp=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_resolve_rejects_push_activity_off_the_out_layout():
+    rnd, eout, res, p_tile, r_tile, st, args = _push_inputs("BFS", 0.3)
+    cands = TER.push_sweep(*args)
+    with pytest.raises(ValueError, match="push_tile_act has shape"):
+        TER.resolve_sweep(rnd, r_tile, res.valid, res.in2out, cands,
+                          p_tile[:-1], eout.width)
+    with pytest.raises(ValueError, match="cands\\[0\\] has shape"):
+        TER.resolve_sweep(rnd, r_tile, res.valid, res.in2out, cands,
+                          p_tile, eout.width + TER.BLOCK_E)
+    with pytest.raises(ValueError, match="not a positive multiple"):
+        TER.resolve_sweep(rnd, r_tile, res.valid, res.in2out, cands,
+                          p_tile, eout.width - 1)
+
+
+def test_push_sweep_writes_into_out():
+    rnd, _eout, _res, _p, _r, _st, args = _push_inputs("WSP", 0.3)
+    want = TER.push_sweep(*args)
+    out = [torch.empty_like(c) for c in want]
+    got = TER.push_sweep(*args, out=out)
+    assert all(g is o for g, o in zip(got, out))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_cpu_tensor_takes_plain_version_and_counts_nothing():

@@ -67,10 +67,23 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+_POISON = 0x7fc0dead                 # a NaN payload (as float32)
+
+
+def _slots_of_tiles(tile_act):
+    """[n_i, n_j] tile activity → [n_pad, width] bool per slot."""
+    return tile_act.repeat_interleave(8, dim=0) \
+        .repeat_interleave(128, dim=1) != 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("density", [0.05, 1.0])
 @pytest.mark.parametrize("name", ["BFS", "WSP", "WPR"])
 def test_kernels_match_plain_on_card(cuda_device, name, density):
+    """Pull in full; push on the tiles it runs (a skipped tile's candidates
+    are undefined on the card); resolve and its has-pred in full, once from
+    a fresh push buffer and once from one poisoned with a NaN payload before
+    the push launch."""
     dev = cuda_device
     g = TS.rmat_graph(400, 3200, seed=11, device=dev)
     rnd = _round(name, g.n)
@@ -99,17 +112,86 @@ def test_kernels_match_plain_on_card(cuda_device, name, density):
                  act, od, wd, st, float(g.n), True)
     push_args = (rnd, t_out, eout.nbrs, eout.weight, eout.capacity,
                  eout.mask, act, od, wd, st, float(g.n))
+    res_args = (res.valid, res.in2out)
+    res_kw = dict(push_tile_act=t_out, width_out=eout.width, states=st,
+                  need_hp=True)
     TER.reset_launches()
     k_pull = TER.pull_sweep(*pull_args)
     k_push = TER.push_sweep(*push_args)
-    k_res = TER.resolve_sweep(rnd, t_res, res.valid, res.in2out, k_push)
+    k_res = TER.resolve_sweep(rnd, t_res, *res_args, k_push, **res_kw)
     torch.cuda.synchronize()
     assert TER.LAUNCHES == {"pull": 1, "push": 1, "resolve": 1, "level": 0}
     p_pull = TER._pull_plain(*pull_args)
     p_push = TER._push_plain(*push_args)
-    p_res = TER._resolve_plain(rnd, t_res, res.valid, res.in2out, p_push)
-    for a, b in zip(k_pull + k_push + k_res, p_pull + p_push + p_res):
+    p_res = TER._resolve_plain(rnd, t_res, *res_args, p_push, **res_kw)
+    assert len(k_res) == rnd.n_levels + len(rnd.comps_order)
+    for a, b in zip(k_pull + k_res, p_pull + p_res):
         assert torch.equal(_bits(a), _bits(b))
+    ran = _slots_of_tiles(t_out)
+    for a, b in zip(k_push, p_push):
+        assert torch.equal(_bits(a)[ran], _bits(b)[ran])
+    poisoned = [torch.full(tuple(eout.nbrs.shape), _POISON, dtype=torch.int32,
+                           device=dev).view(dt) for dt in rnd.dtypes]
+    k_push = TER.push_sweep(*push_args, out=poisoned)
+    k_res = TER.resolve_sweep(rnd, t_res, *res_args, k_push, **res_kw)
+    torch.cuda.synchronize()
+    for a, b in zip(k_push, p_push):
+        assert torch.equal(_bits(a)[ran], _bits(b)[ran])
+        assert bool((_bits(a)[~ran] == _POISON).all())   # left untouched
+    for a, b in zip(k_res, p_res):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("resolution", ["sorted", "scatter"])
+def test_push_resolutions_match_pull_engine_on_card(cuda_device, resolution):
+    """Both push resolutions give the pull engine's answer: BFS bitwise,
+    weighted PageRank under push− allclose."""
+    g = TS.rmat_graph(400, 3200, seed=11, device=cuda_device)
+    prog = TF.fuse(TU.ALL_SPECS["BFS"]())
+    TER.reset_launches()
+    got = TE.run_program(g, prog, engine="cuda", push_resolution=resolution)
+    torch.cuda.synchronize()
+    assert got.stats.push_iters > 0 and TER.LAUNCHES["push"] > 0
+    assert TER.LAUNCHES["resolve"] == (TER.LAUNCHES["push"]
+                                       if resolution == "sorted" else 0)
+    want = TE.run_program(g, prog, engine="pull")
+    assert torch.equal(got.value, want.value)
+    dk = TSy.weighted_pagerank_kernels(g.n)
+    push = TE.run_direct(g, dk, engine="cuda", model="push",
+                         push_resolution=resolution)
+    pull = TE.run_direct(g, dk, engine="pull")
+    assert push.stats.iterations == pull.stats.iterations
+    torch.testing.assert_close(push.value, pull.value, rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.gpu
+def test_resolve_wrapper_rejects_off_layout_push_activity(cuda_device):
+    g = TS.rmat_graph(64, 256, seed=1, device=cuda_device)
+    rnd = _round("BFS", g.n)
+    e = TS.to_blocked_ell(g, direction="out")
+    res = TS.to_push_resolution(g)
+    act = torch.ones(e.n_pad, dtype=torch.int32, device=cuda_device)
+    od = torch.ones(e.n_pad, device=cuda_device)
+    st = [torch.zeros(e.n_pad, dtype=dt, device=cuda_device)
+          for dt in rnd.dtypes]
+    t_out = TER.tile_activity_push(e.tile_nnz, act)
+    cands = TER.push_sweep(rnd, t_out, e.nbrs, e.weight, e.capacity, e.mask,
+                           act, od, od, st, float(g.n))
+    t_res = TER.resolution_tile_activity(res.contrib, t_out, res.tile_nnz)
+    with pytest.raises(ValueError, match="push_tile_act has shape"):
+        TER.resolve_sweep(rnd, t_res, res.valid, res.in2out, cands,
+                          t_out[:, :0], e.width)
+    with pytest.raises(ValueError, match="has shape"):
+        TER.resolve_sweep(rnd, t_res, res.valid, res.in2out, cands, t_out,
+                          e.width * 2)
+    with pytest.raises(ValueError, match="push_tile_act must be torch.int32"):
+        TER.resolve_sweep(rnd, t_res, res.valid, res.in2out, cands,
+                          t_out.bool(), e.width)
+    with pytest.raises(ValueError, match="out\\[0\\] must have shape"):
+        TER.push_sweep(rnd, t_out, e.nbrs, e.weight, e.capacity, e.mask,
+                       act, od, od, st, float(g.n),
+                       out=[c[:-8] for c in cands])
 
 
 @pytest.mark.gpu
