@@ -8,19 +8,23 @@ nothing of JAX or of the JAX package ``repro``), builds the CUDA edge-sweep
 kernels from ``src/repro_torch/csrc`` with nvcc on first use (all rounds'
 libraries at once, into ``build/repro_torch/``), and then
 
-1. holds each kernel (pull sweep, push sweep, sorted push resolution)
-   against its plain PyTorch version on the card, on the layouts of the
-   Graph500-style Kronecker graph ``rmat_graph(65536, 1048576, seed=16)``
-   (SCALE 16, edge factor 16) at frontier densities 0.05 and 1.0 for BFS
-   (int min), WSP (two lex levels) and weighted PageRank (float sum):
-   the pull and resolve outputs, has-pred included, must be bitwise equal
-   in full, the push candidates on every tile the push sweep runs (it
-   leaves a skipped tile undefined); each case runs once more with the
-   push buffer filled with a NaN payload before the push launch, and
-   must give the same bits; times each kernel with CUDA events beside its
-   plain version and its memory bound (the bytes the kernel must move,
-   counting of the per-edge inputs only those the round's P reads, and of
-   the candidates only those of the tiles that run);
+1. holds each kernel (pull sweep in both modes, push sweep, sorted push
+   resolution) against its plain PyTorch version on the card, on the
+   layouts of the Graph500-style Kronecker graph ``rmat_graph(65536,
+   1048576, seed=16)`` (SCALE 16, edge factor 16) at frontier densities
+   0.05 and 1.0 for BFS (int min), WSP (two lex levels) and weighted
+   PageRank (float sum): the pull outputs with the given activity and with
+   the activity derived in the kernel (and that activity against the torch
+   ``tile_activity``) and the resolve outputs, has-pred included, must be
+   bitwise equal in full, the push candidates on every tile the push sweep
+   runs (it leaves a skipped tile undefined); each case runs once more with
+   the push buffer and every pull output filled with a NaN payload before
+   the launches, and must give the same bits; times each kernel with CUDA
+   events beside its plain version and its memory bound (the bytes the
+   kernel must move, counting of the per-edge inputs only those the
+   round's P reads, and of the candidates only those of the tiles that
+   run), and the derived-activity pull beside the parent's pull step (the
+   torch tile activity, then the sweep);
 2. checks the RM-XS work counters against the reference's
    (BENCH_pallas.json) and a small query against the path oracle;
 3. drives the main path — ``engine.run_program`` / ``run_direct`` with
@@ -35,9 +39,13 @@ libraries at once, into ``build/repro_torch/``), and then
    262,144 row tiles exceed a CUDA grid's y limit), for BFS, PageRank and
    weighted PageRank at frontier densities 0.05 and 1.0.  Those
    comparison launches are not counted.  Warm re-runs of three queries go
-   under torch.profiler (device busy time, idle share, top kernels); the
-   weighted-PageRank push one fails if a torch gather runs every
-   iteration (its has-pred probe lives in the resolve kernel);
+   under torch.profiler (device busy time, idle share, top kernels, the
+   device time of the pull and push steps); the weighted-PageRank push one
+   fails if a torch gather runs every iteration (its has-pred probe lives
+   in the resolve kernel), the two BFS ones if a torch gather or index
+   kernel inside the pull steps runs once per pull iteration or more (the
+   pull tile activity lives in the pull kernel) or the pull kernel does
+   not launch once per pull iteration;
 4. drives the entry points of the four kernels off the graph main path,
    each at the shapes the repository's configurations give it, with its
    launch count set to 0 just before its phase's driving calls and read
@@ -237,7 +245,7 @@ def main(argv) -> int:
         f"{json.dumps(builds)}")
     walk = {name: r.walk_attributes() for name, r in rounds.items()}
     record["walk_attributes"] = walk
-    log(f"push/resolve compiled: {json.dumps(walk)}")
+    log(f"pull/push/resolve compiled: {json.dumps(walk)}")
 
     # ------------------------------------------------------------------
     # Phase 1: kernels against their plain versions on the card.
@@ -301,6 +309,11 @@ def main(argv) -> int:
         return tile_act.repeat_interleave(ER.BLOCK_V, dim=0) \
             .repeat_interleave(ER.BLOCK_E, dim=1) != 0
 
+    def poisoned_like(ts):
+        """Buffers of the shapes and dtypes of ``ts``, every word POISON."""
+        return [torch.full(tuple(t.shape), POISON, dtype=torch.int32,
+                           device=dev).view(t.dtype) for t in ts]
+
     def compare(kname, rname, label, density, ks, ps, where=None):
         """Bitwise equality of kernel and plain outputs (on the slots
         ``where`` keeps, when given); returns the max |Δ| there."""
@@ -335,10 +348,13 @@ def main(argv) -> int:
             v[rng.random(n_pad) < 0.25] = ident
             st.append(torch.from_numpy(v).to(dev))
         t_in = ER.tile_activity(ein.nbrs, ein.mask, ein.tile_nnz, active)
+        t_static = ein.tiles_static
         t_out = ER.tile_activity_push(eout.tile_nnz, active)
         t_res = ER.resolution_tile_activity(res.contrib, t_out, res.tile_nnz)
-        pull_args = (rnd, t_in, ein.nbrs, ein.weight, ein.capacity,
-                     ein.mask, active, outdeg, wdeg, st, float(g.n), True)
+        pull_rest = (ein.nbrs, ein.weight, ein.capacity, ein.mask, active,
+                     outdeg, wdeg, st, float(g.n), True)
+        pull_args = (rnd, t_in, *pull_rest)
+        front_args = (rnd, t_static, *pull_rest)
         push_args = (rnd, t_out, eout.nbrs, eout.weight, eout.capacity,
                      eout.mask, active, outdeg, wdeg, st, float(g.n))
         res_args = (rnd, t_res, res.valid, res.in2out)
@@ -350,6 +366,7 @@ def main(argv) -> int:
                       for _pos, op in spec)
         timed_kw = dict(res_kw, need_hp=hp_main)
         k_pull = ER.pull_sweep(*pull_args)
+        k_front, k_act = ER.pull_sweep_frontier(*front_args)
         k_push = ER.push_sweep(*push_args)
         k_res = ER.resolve_sweep(*res_args, k_push, **res_kw)
         torch.cuda.synchronize()
@@ -357,8 +374,13 @@ def main(argv) -> int:
         p_push = ER._push_plain(*push_args)
         p_res = ER._resolve_plain(*res_args, p_push, **res_kw)
         ran = slots_of(t_out)
-        errs = {"pull": compare("pull", rname, label, density, k_pull,
-                                p_pull),
+        # the derived activity against the torch tile activity, bitwise
+        compare("pull derived activity", rname, label, density, [k_act],
+                [t_in])
+        errs = {"pull": compare("pull (derived activity)", rname, label,
+                                density, k_front, p_pull),
+                "pull_given": compare("pull (given activity)", rname, label,
+                                      density, k_pull, p_pull),
                 # a skipped tile's push candidates are undefined on the card
                 "push": compare("push", rname, label, density, k_push,
                                 p_push, ran),
@@ -372,13 +394,25 @@ def main(argv) -> int:
                     for dt in rnd.dtypes]
         q_push = ER.push_sweep(*push_args, out=poisoned)
         q_res = ER.resolve_sweep(*res_args, q_push, **res_kw)
+        # ... and every pull output, the derived activity included, starts
+        # as the payload: the walk and the grid-stride pass must overwrite
+        # every word
+        q_pull = ER.pull_sweep(*pull_args, out=poisoned_like(k_pull))
+        q_front, q_act = ER.pull_sweep_frontier(
+            *front_args, out=poisoned_like([*k_front, k_act]))
         torch.cuda.synchronize()
         compare("push (poisoned)", rname, label, density, q_push, p_push,
                 ran)
         compare("resolve (poisoned)", rname, label, density, q_res, p_res)
+        compare("pull (given activity, poisoned)", rname, label, density,
+                q_pull, p_pull)
+        compare("pull (derived activity, poisoned)", rname, label, density,
+                [*q_front, q_act], [*p_pull, t_in])
         del p_pull, p_push, p_res, q_push, q_res, poisoned, k_res
+        del k_pull, k_front, k_act, q_pull, q_front, q_act
         nc, nl = len(rnd.dtypes), rnd.n_levels
         n_tiles_in = int(t_in.sum())
+        n_tiles_static = int(t_static.sum())
         n_tiles_out = int(t_out.sum())
         n_tiles_res = int(t_res.sum())
         # candidates the resolve kernel gathers: valid slots whose out-tile
@@ -405,10 +439,19 @@ def main(argv) -> int:
             return 1 + 4 * sum(nm in reads for nm in names)
         vec = n_pad * 4 * (1 + nc + ("outdeg" in reads) + ("wdeg" in reads))
         n_j_res = res.width // ER.BLOCK_E
+        cells = n_pad * (ein.width // ER.BLOCK_E) * 4 * (nl + nc)
         bytes_ = {
-            "pull": t_in.numel() * 4 + n_tiles_in * slot * (
-                4 + slot_bytes("w", "c")) + vec
-            + n_pad * (ein.width // ER.BLOCK_E) * 4 * (nl + nc),
+            # derived activity: the static word of every tile; the source
+            # index and mask (5 B) of every slot of every non-empty tile;
+            # the weight and capacity P reads only in the tiles that run;
+            # the vectors; the cells and the activity array written
+            "pull": t_static.numel() * 4 + n_tiles_static * slot * 5
+            + n_tiles_in * slot * (slot_bytes("w", "c") - 1) + vec + cells
+            + t_in.numel() * 4,
+            # given activity: the activity word of every tile, then the
+            # running tiles' slots, the vectors and the cells
+            "pull_given": t_in.numel() * 4 + n_tiles_in * slot * (
+                4 + slot_bytes("w", "c")) + vec + cells,
             "push": t_out.numel() * 4 + n_tiles_out * slot * (
                 slot_bytes("edst", "w", "c") + 4 * nc) + vec,
             # in2out (4 B) and valid (1 B) per processed slot, the push
@@ -423,11 +466,23 @@ def main(argv) -> int:
         case = {"graph": label, "round": rname, "density": density,
                 "p_reads": sorted(reads), "poisoned_repeat": "bitwise",
                 "resolve_timed_with_haspred": hp_main,
-                "tiles": {"pull": n_tiles_in, "push": n_tiles_out,
-                          "resolve": n_tiles_res},
+                "tiles": {"pull": n_tiles_in, "pull_static": n_tiles_static,
+                          "push": n_tiles_out, "resolve": n_tiles_res},
                 "candidates_gathered": gathered}
+        def pair():
+            """The parent's pull step: the torch tile activity, then the
+            sweep with the given activity."""
+            act = ER.tile_activity(ein.nbrs, ein.mask, ein.tile_nnz, active)
+            return ER.pull_sweep(rnd, act, *pull_rest)
+
+        def pair_plain():
+            act = ER.tile_activity(ein.nbrs, ein.mask, ein.tile_nnz, active)
+            return ER._pull_plain(rnd, act, *pull_rest)
+
         for kname, fn, plain in (
-                ("pull", lambda: ER.pull_sweep(*pull_args),
+                ("pull", lambda: ER.pull_sweep_frontier(*front_args),
+                 pair_plain),
+                ("pull_given", lambda: ER.pull_sweep(*pull_args),
                  lambda: ER._pull_plain(*pull_args)),
                 ("push", lambda: ER.push_sweep(*push_args),
                  lambda: ER._push_plain(*push_args)),
@@ -439,6 +494,7 @@ def main(argv) -> int:
                 "plain_ms": time_ms(plain, plain_reps),
                 "bound_ms": bytes_[kname] / HBM_BYTES_PER_S * 1e3,
                 "bytes": bytes_[kname], "max_abs_err": errs[kname]}
+        case["pull"]["pair_ms"] = time_ms(pair, reps)
         log("kernel case " + json.dumps(case))
         return case
 
@@ -663,11 +719,40 @@ def main(argv) -> int:
         log(f"setup {label}: " + json.dumps(times))
         record.setdefault("setup_s", {})[label] = times
 
-    def profiled(label, fn, no_gather_per_iteration=False):
+    def is_gather(name):
+        return "gather" in name.lower() or "index" in name.lower()
+
+    def step_kernels(prof, step):
+        """The torch kernels launched inside the fixpoint's ``grafs::``
+        ``step`` ranges (ops.iterate_cuda): {name: [calls, ms]}.  A kernel
+        belongs to the aten op it was launched from, which lies inside the
+        range.  (The sweep kernels, launched through ctypes, belong to no
+        op and are counted from the device events instead.)"""
+        out = {}
+        for ev in prof.events():
+            if not ev.kernels:
+                continue
+            up = ev
+            while up is not None and up.name != f"grafs::{step}":
+                up = up.cpu_parent
+            if up is None:
+                continue
+            for k in ev.kernels:
+                c = out.setdefault(k.name, [0, 0.0])
+                c[0] += 1
+                c[1] += k.duration / 1e3
+        return out
+
+    def profiled(label, fn, no_gather_per=None):
         """One warm re-run under torch.profiler: device busy time against
-        the wall, the top ops by device time (to chiprun_out/) and torch's
-        gather and index kernels.  With ``no_gather_per_iteration`` the run
-        fails if one of those ran once per iteration or more."""
+        the wall, the top ops by device time (to the details directory),
+        torch's gather and index kernels, the device spans of the pull and
+        push steps and the torch kernels inside the pull steps.  With
+        ``no_gather_per="iteration"`` the run fails if a torch gather or
+        index kernel ran once per iteration or more; with ``"pull"``, if
+        one launched inside the pull steps ran once per pull iteration or
+        more, or if the pull kernel did not launch exactly once per pull
+        iteration."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
@@ -678,19 +763,34 @@ def main(argv) -> int:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         ka = prof.key_averages()
-        kern = [e for e in ka if e.device_type == DeviceType.CUDA]
+        dev_ev = [e for e in ka if e.device_type == DeviceType.CUDA]
+        # the grafs:: ranges also appear on the device timeline, as spans
+        # from a step's first kernel to its last: kept apart from the
+        # kernels
+        spans = {e.key: e.device_time_total / 1e3 for e in dev_ev
+                 if e.key.startswith("grafs::")}
+        kern = [e for e in dev_ev if not e.key.startswith("grafs::")]
         busy = sum(e.self_device_time_total for e in kern) / 1e3
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
         gathers = {e.key[:60]: {"calls": e.count,
                                 "ms": e.self_device_time_total / 1e3}
-                   for e in kern if "gather" in e.key.lower()
-                   or "index" in e.key.lower()}
+                   for e in kern if is_gather(e.key)}
+        pull_step = step_kernels(prof, "pull")
         summary = {"wall_ms": wall, "device_busy_ms": busy,
                    "idle_share": max(0.0, 1.0 - busy / wall),
                    "iterations": r.stats.iterations,
+                   "pull_iters": r.stats.pull_iters,
+                   "push_iters": r.stats.push_iters,
+                   "step_span_ms": spans,
+                   "pull_kernel_launches": sum(
+                       e.count for e in kern if "pull_kernel" in e.key),
+                   "pull_step_torch_ms": sum(c[1] for c in
+                                             pull_step.values()),
                    "top_device_ms": {e.key[:60]: e.self_device_time_total
                                      / 1e3 for e in top},
-                   "gathers": gathers}
+                   "gathers": gathers,
+                   "pull_step_kernels": {k[:60]: c for k, c
+                                         in pull_step.items()}}
         profiles[label] = summary
         log(f"profile {label}: " + json.dumps(summary))
         try:
@@ -699,11 +799,26 @@ def main(argv) -> int:
                 ka.table(sort_by="self_device_time_total", row_limit=30))
         except OSError:
             pass
-        per_iter = [k for k, v in gathers.items()
-                    if v["calls"] >= r.stats.iterations]
-        if no_gather_per_iteration and per_iter:
-            raise RuntimeError(f"{label}: a torch gather ran every "
-                               f"iteration: {per_iter}")
+        if no_gather_per == "iteration":
+            per = [k for k, v in gathers.items()
+                   if v["calls"] >= r.stats.iterations]
+            if per:
+                raise RuntimeError(f"{label}: a torch gather ran every "
+                                   f"iteration: {per}")
+        elif no_gather_per == "pull":
+            n_pull = r.stats.pull_iters
+            if summary["pull_kernel_launches"] != n_pull:
+                raise RuntimeError(f"{label}: the pull kernel ran "
+                                   f"{summary['pull_kernel_launches']} "
+                                   f"times in {n_pull} pull iterations")
+            if not pull_step:
+                raise RuntimeError(f"{label}: the profiler attributed no "
+                                   "kernel to a pull step")
+            per = [k[:60] for k, c in pull_step.items()
+                   if is_gather(k) and c[0] >= n_pull]
+            if per:
+                raise RuntimeError(f"{label}: a torch gather ran in every "
+                                   f"pull iteration: {per}")
 
     def run(label, g, cuda_fn, pull_fn, exact):
         torch.cuda.synchronize()
@@ -764,14 +879,17 @@ def main(argv) -> int:
                               engine="cuda", model="push"),
         lambda: TE.run_direct(g16, weighted_pagerank_kernels(n, tol=1e-4 / n),
                               engine="pull"), False)
+    # the pull tile activity lives in the pull kernel: no torch gather over
+    # the in-layout rectangle is left in the pull step
     profiled("BFS rmat16",
-             lambda: TE.run_program(g16, progs["BFS"], engine="cuda"))
+             lambda: TE.run_program(g16, progs["BFS"], engine="cuda"),
+             no_gather_per="pull")
     # the push− has-pred probe lives in the resolve kernel: no torch
     # gather over the in-layout rectangle is left in the iteration
     profiled("weighted PageRank push rmat16",
              lambda: TE.run_direct(g16, weighted_pagerank_kernels(
                  n, tol=1e-4 / n), engine="cuda", model="push"),
-             no_gather_per_iteration=True)
+             no_gather_per="iteration")
     gu16 = TS.undirected(g16)
     TE.clear_graph_caches(g16)
     torch.cuda.empty_cache()
@@ -803,7 +921,8 @@ def main(argv) -> int:
         lambda: TE.run_direct(gu, pagerank_kernels(gu.n, tol=1e-4 / gu.n),
                               engine="pull"), False)
     profiled("BFS uniform21",
-             lambda: TE.run_program(gu, progs["BFS"], engine="cuda"))
+             lambda: TE.run_program(gu, progs["BFS"], engine="cuda"),
+             no_gather_per="pull")
     add_launches()
     launches = main_launches
     log(f"main-path launches: {json.dumps(launches)}")
@@ -915,6 +1034,13 @@ def main(argv) -> int:
             "library_ms": None,
             "case": "weighted PageRank round, all sources active, "
                     f"rmat_graph({n16}, {e16}, seed=16)"})
+    # the pull kernel's line is its derived-activity mode (an idempotent
+    # pull iteration); beside it the given-activity mode and the parent's
+    # pair (the torch tile activity, then the sweep)
+    given = ref_case["pull_given"]
+    kernels[0].update(mode="derived activity", given_ms=given["ms"],
+                      given_bound_ms=given["bound_ms"],
+                      pair_ms=ref_case["pull"]["pair_ms"])
     for kname, label in (("level", "rmat16 float n+w"),
                          ("softmax", "rmat16 in-layout"),
                          ("bag", "float32 table K=1 sum"),

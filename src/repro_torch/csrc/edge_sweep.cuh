@@ -18,15 +18,26 @@
 //
 // Geometry.  Inside a tile (8 rows × 128 slots) warp r owns row r and lane
 // l owns the four contiguous slots 4l..4l+3, loaded as one 16-byte vector
-// per array; addresses are computed in 64 bits.  The pull kernel launches
-// one 256-thread block per tile, the tile index flattened onto blockIdx.x
-// (the uniform graphs have more than 65,535 row tiles, so nothing goes on
-// gridDim.y).  The push and resolve kernels walk the active tiles instead
-// (walk_tiles): a grid of as many blocks as the card holds at once deals
-// the flattened tiles out to its blocks in turn; each thread reads one
-// activity word, each warp ballots its 32, and the block then visits its
-// active tiles of the step in order with the tile geometry above.  No
-// host read and no work list: a skipped tile costs one word.
+// per array; addresses are computed in 64 bits.  All three kernels walk
+// their tiles (walk_tiles): a grid of as many blocks as the card holds at
+// once deals the flattened tiles out to its blocks in turn; each thread
+// reads one word of the walked tile list, each warp ballots its 32, and
+// the block then visits the tiles whose word is set, in order, with the
+// tile geometry above.  No host read and no work list: a skipped tile
+// costs one word.  The cells of the tiles the walk skips get the
+// identities in one coalesced grid-stride pass (fill_skipped).
+//
+// The pull kernel has two modes.  Given activity walks the frontier's
+// tile activity as the caller computed it.  Derived activity walks the
+// layout's static non-empty tiles and decides each tile's activity itself:
+// every warp tests its row's slots (mask && active[src]), the block votes
+// (__syncthreads_or, one decision per tile, as the reference skips or runs
+// whole tiles), the kernel writes the tile's activity word, and an
+// inactive tile writes only its identity cells.  The frontier's tile
+// activity then costs the source index and mask of the non-empty tiles'
+// slots and the frontier words they name, not a gather over the whole
+// rectangle; the other per-edge inputs are read only in the tiles that
+// run.
 //
 // What bounds them on an H100: bytes.  Each processed slot reads its mask
 // and (pull) its source index; of the weight, the capacity, (push) the
@@ -35,13 +46,13 @@
 // operations, far below the 295 operations per byte at which the card's
 // arithmetic would become the limit.  The design keeps the reference's
 // frontier-proportional tile skip and coalesced 16-byte loads, and keeps
-// the push step's bytes proportional to its live tiles: the push sweep
+// every step's bytes proportional to its live tiles: the push sweep
 // writes candidates only into the tiles it runs (a skipped tile's
 // candidates are left undefined), and the resolve kernel reads a
 // candidate only where the push activity of the out-tile holding it says
 // that tile ran (the identity elsewhere, which is what the reference's
-// identity-filled skipped tile would have given it).  The pull kernel
-// still writes identities into every skipped tile's cells (condition C6
+// identity-filled skipped tile would have given it).  The pull and resolve
+// kernels write identities into every skipped tile's cells (condition C6
 // bit for bit).
 //
 // Reduction order (the plain versions in kernels/edge_reduce.py repeat it):
@@ -209,95 +220,15 @@ __device__ __forceinline__ void write_identities(Ptrs outs, long long cell) {
     static_cast<uint32_t*>(outs.p[l])[cell] = R::ident(R::lev_pos(l));
 }
 
-// Pull sweep (<- _fused_kernel).  outs.p = one [n_pad, n_j] candidate array
-// per lex level, then (need_hp) one int32 [n_pad, n_j] has-pred array per
-// component.
-template <class R>
-__global__ void __launch_bounds__(THREADS)
-pull_kernel(const int* __restrict__ tile_act, const int* __restrict__ srcs,
-            const float* __restrict__ weight,
-            const float* __restrict__ capacity,
-            const unsigned char* __restrict__ mask,
-            const int* __restrict__ active, const float* __restrict__ outdeg,
-            const float* __restrict__ wdeg, Ptrs states, Ptrs outs, int n_j,
-            int width, float nv, int need_hp) {
-  const long long tile = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long i = tile / n_j, j = tile % n_j;
-  const long long row = i * BLOCK_V + warp;
-  const long long cell = row * n_j + j;
-  if (tile_act[tile] == 0) {
-    if (lane == 0) {
-      write_identities<R>(outs, cell);
-      if (need_hp)
-        for (int k = 0; k < R::NC; ++k)
-          static_cast<int*>(outs.p[R::NLEV + k])[cell] = 0;
-    }
-    return;
-  }
-  const long long base = row * width + j * BLOCK_E + lane * SLOTS;
-  int sv[SLOTS];
-  float wv[SLOTS] = {}, cv[SLOTS] = {};
-  bool raw[SLOTS];
-  load4<int4>(srcs + base, sv);
-  if constexpr (R::READS_W) load4<float4>(weight + base, wv);
-  if constexpr (R::READS_C) load4<float4>(capacity + base, cv);
-  load_mask4(mask + base, raw);
-  bool act[SLOTS];
-  float od[SLOTS] = {}, wd[SLOTS] = {};
-#pragma unroll
-  for (int s = 0; s < SLOTS; ++s) {
-    act[s] = raw[s] && active[sv[s]] != 0;
-    if constexpr (R::READS_OUTDEG) od[s] = outdeg[sv[s]];
-    if constexpr (R::READS_WDEG) wd[s] = wdeg[sv[s]];
-  }
-  uint32_t gathered[R::NC][SLOTS], props[R::NC][SLOTS];
-#pragma unroll
-  for (int k = 0; k < R::NC; ++k) {         // ONE gather per component
-    const uint32_t* st = static_cast<const uint32_t*>(states.p[k]);
-    const uint32_t id = R::ident(k);
-    const bool f = R::comp_float(k);
-#pragma unroll
-    for (int s = 0; s < SLOTS; ++s) {
-      const uint32_t nw = st[sv[s]];
-      const Env e{wv[s], cv[s], sv[s], (int)row, od[s], wd[s], nv};
-      const uint32_t p = R::P(k, e, nw);
-      gathered[k][s] = nw;
-      props[k][s] = weq(nw, id, f) ? id : p;   // C3: ⊥ stays ⊥
-    }
-  }
-  uint32_t best[R::NLEV];
-  lex_chain<R>(props, act, best);
-  bool nb[R::NC];
-  if (need_hp) {                            // fused has-pred probe (raw mask)
-#pragma unroll
-    for (int k = 0; k < R::NC; ++k) {
-      bool any = false;
-#pragma unroll
-      for (int s = 0; s < SLOTS; ++s)
-        any = any || (raw[s] && !weq(gathered[k][s], R::ident(k),
-                                     R::comp_float(k)));
-      nb[k] = __any_sync(0xffffffffu, any);
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int l = 0; l < R::NLEV; ++l)
-      static_cast<uint32_t*>(outs.p[l])[cell] = best[l];
-    if (need_hp)
-      for (int k = 0; k < R::NC; ++k)
-        static_cast<int*>(outs.p[R::NLEV + k])[cell] = nb[k] ? 1 : 0;
-  }
-}
-
-// The active-tile walk of the push and resolve kernels.  Tiles are dealt
-// to blocks in turn, tile t to block t mod gridDim.x, so that a run of
-// live tiles (rmat's hub rows fill whole row tiles) spreads over the grid
-// instead of queueing on one block.  At each step thread k of block b
-// reads the activity word of tile (c + k)·gridDim.x + b, each warp's
-// ballot goes to shared memory, and every warp then runs visit(tile) for
-// each active tile of the step, in order, so all 32 lanes of every warp
-// are in each visit (the row reductions shuffle over the whole warp).
+// The walk over a tile list.  Tiles are dealt to blocks in turn, tile t
+// to block t mod gridDim.x, so that a run of live tiles (rmat's hub rows
+// fill whole row tiles) spreads over the grid instead of queueing on one
+// block.  At each step thread k of block b reads the word of tile
+// (c + k)·gridDim.x + b, each warp's ballot goes to shared memory, and
+// every warp then runs visit(tile) for each tile of the step whose word is
+// set, in order, so all 32 lanes of every warp, and all warps of the
+// block, are in each visit (the row reductions shuffle over the whole
+// warp; the pull kernel's derived activity votes over the whole block).
 template <class Visit>
 __device__ __forceinline__ void walk_tiles(const int* __restrict__ tile_act,
                                            long long n_tiles, Visit visit) {
@@ -317,6 +248,130 @@ __device__ __forceinline__ void walk_tiles(const int* __restrict__ tile_act,
         visit((c + w * 32 + (__ffs(todo) - 1)) * grid + b);
     __syncthreads();                      // busy[] is rewritten next step
   }
+}
+
+// The cells of the tiles whose word in tile_act is 0 get the identities
+// (has-pred 0) in one grid-stride pass over the [n_pad, n_j] cells,
+// coalesced; with act_out, such a tile's activity word is 0 too.  The walk
+// over tile_act writes every other cell, so the two write disjoint cells.
+template <class R>
+__device__ __forceinline__ void fill_skipped(const int* __restrict__ tile_act,
+                                             long long n_tiles, int n_j,
+                                             Ptrs outs, int need_hp,
+                                             int* __restrict__ act_out) {
+  const int n_cells = (int)n_tiles * BLOCK_V;             // < 2^24 cells
+  for (int q = blockIdx.x * THREADS + threadIdx.x; q < n_cells;
+       q += gridDim.x * THREADS) {
+    const int row = q / n_j, j = q - row * n_j;
+    const int t = (row / BLOCK_V) * n_j + j;
+    if (tile_act[t] == 0) {
+      write_identities<R>(outs, q);
+      if (need_hp)
+        for (int k = 0; k < R::NC; ++k)
+          static_cast<int*>(outs.p[R::NLEV + k])[q] = 0;
+      if (act_out != nullptr && row % BLOCK_V == 0) act_out[t] = 0;
+    }
+  }
+}
+
+// Pull sweep (<- _fused_kernel) on the walk.  outs.p = one [n_pad, n_j]
+// candidate array per lex level, then (need_hp) one int32 [n_pad, n_j]
+// has-pred array per component.  DERIVE = false: tile_act is the
+// frontier's tile activity and every walked tile runs.  DERIVE = true:
+// tile_act is the layout's static non-empty tiles; the block votes whether
+// any slot of the tile is real with an active source, writes the vote to
+// act_out[tile] ([n_i, n_j] int32), and an inactive tile writes only its
+// identity cells (has-pred 0).  A tile that runs computes the same in
+// both modes: the same loads, the same lex chain, the same order.
+template <class R, bool DERIVE>
+__global__ void __launch_bounds__(THREADS)
+pull_kernel(const int* __restrict__ tile_act, long long n_tiles,
+            int* __restrict__ act_out, const int* __restrict__ srcs,
+            const float* __restrict__ weight,
+            const float* __restrict__ capacity,
+            const unsigned char* __restrict__ mask,
+            const int* __restrict__ active, const float* __restrict__ outdeg,
+            const float* __restrict__ wdeg, Ptrs states, Ptrs outs, int n_j,
+            int width, float nv, int need_hp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto visit = [&](long long tile) {
+    const int i = (int)tile / n_j, j = (int)tile - i * n_j;  // < 2^21 tiles
+    const long long row = (long long)i * BLOCK_V + warp;
+    const long long cell = row * n_j + j;
+    const long long base = row * width + j * BLOCK_E + lane * SLOTS;
+    int sv[SLOTS];
+    bool raw[SLOTS], act[SLOTS];
+    load4<int4>(srcs + base, sv);
+    load_mask4(mask + base, raw);
+    bool any = false;
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      act[s] = raw[s] && active[sv[s]] != 0;
+      any = any || act[s];
+    }
+    if constexpr (DERIVE) {               // one decision per tile
+      const bool live = __syncthreads_or(any) != 0;
+      if (threadIdx.x == 0) act_out[tile] = live ? 1 : 0;
+      if (!live) {
+        if (lane == 0) {
+          write_identities<R>(outs, cell);
+          if (need_hp)
+            for (int k = 0; k < R::NC; ++k)
+              static_cast<int*>(outs.p[R::NLEV + k])[cell] = 0;
+        }
+        return;
+      }
+    }
+    float wv[SLOTS] = {}, cv[SLOTS] = {};
+    if constexpr (R::READS_W) load4<float4>(weight + base, wv);
+    if constexpr (R::READS_C) load4<float4>(capacity + base, cv);
+    float od[SLOTS] = {}, wd[SLOTS] = {};
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      if constexpr (R::READS_OUTDEG) od[s] = outdeg[sv[s]];
+      if constexpr (R::READS_WDEG) wd[s] = wdeg[sv[s]];
+    }
+    uint32_t gathered[R::NC][SLOTS], props[R::NC][SLOTS];
+#pragma unroll
+    for (int k = 0; k < R::NC; ++k) {       // ONE gather per component
+      const uint32_t* st = static_cast<const uint32_t*>(states.p[k]);
+      const uint32_t id = R::ident(k);
+      const bool f = R::comp_float(k);
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s) {
+        const uint32_t nw = st[sv[s]];
+        const Env e{wv[s], cv[s], sv[s], (int)row, od[s], wd[s], nv};
+        const uint32_t p = R::P(k, e, nw);
+        gathered[k][s] = nw;
+        props[k][s] = weq(nw, id, f) ? id : p;   // C3: ⊥ stays ⊥
+      }
+    }
+    uint32_t best[R::NLEV];
+    lex_chain<R>(props, act, best);
+    bool nb[R::NC];
+    if (need_hp) {                          // fused has-pred probe (raw mask)
+#pragma unroll
+      for (int k = 0; k < R::NC; ++k) {
+        bool hit = false;
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s)
+          hit = hit || (raw[s] && !weq(gathered[k][s], R::ident(k),
+                                       R::comp_float(k)));
+        nb[k] = __any_sync(0xffffffffu, hit);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int l = 0; l < R::NLEV; ++l)
+        static_cast<uint32_t*>(outs.p[l])[cell] = best[l];
+      if (need_hp)
+        for (int k = 0; k < R::NC; ++k)
+          static_cast<int*>(outs.p[R::NLEV + k])[cell] = nb[k] ? 1 : 0;
+    }
+  };
+  fill_skipped<R>(tile_act, n_tiles, n_j, outs, need_hp,
+                  DERIVE ? act_out : nullptr);
+  walk_tiles(tile_act, n_tiles, visit);
 }
 
 // Push sweep (<- _push_kernel) over the out-layout: rows are sources, state
@@ -439,19 +494,7 @@ resolve_kernel(const int* __restrict__ tile_act, long long n_tiles,
           static_cast<int*>(outs.p[R::NLEV + k])[cell] = nb[k] ? 1 : 0;
     }
   };
-  // The cells of skipped tiles get the identities (has-pred 0) in one
-  // grid-stride pass over the cells, coalesced; the walk writes the rest.
-  const int n_cells = (int)n_tiles * BLOCK_V;             // < 2^24 cells
-  for (int q = blockIdx.x * THREADS + threadIdx.x; q < n_cells;
-       q += gridDim.x * THREADS) {
-    const int row = q / n_j, j = q - row * n_j;
-    if (tile_act[(row / BLOCK_V) * n_j + j] == 0) {
-      write_identities<R>(outs, q);
-      if (need_hp)
-        for (int k = 0; k < R::NC; ++k)
-          static_cast<int*>(outs.p[R::NLEV + k])[q] = 0;
-    }
-  }
+  fill_skipped<R>(tile_act, n_tiles, n_j, outs, need_hp, nullptr);
   walk_tiles(tile_act, n_tiles, visit);
 }
 
@@ -478,29 +521,61 @@ inline Ptrs pack(void* const* p, int n) {
   return out;
 }
 
+// One launch of the pull kernel in either mode, on the walk's grid.
+template <class R, bool DERIVE>
+inline int launch_pull(const void* tile_act, void* act_out, const void* srcs,
+                       const void* weight, const void* capacity,
+                       const void* mask, const void* active,
+                       const void* outdeg, const void* wdeg,
+                       void* const* states, void* const* outs, int n_tiles,
+                       int n_j, int width, float nv, int need_hp,
+                       void* stream) {
+  static int resident = 0;
+  if (!resident) resident = resident_blocks(pull_kernel<R, DERIVE>);
+  pull_kernel<R, DERIVE><<<walk_grid(resident, n_tiles), THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      (const int*)tile_act, n_tiles, (int*)act_out, (const int*)srcs,
+      (const float*)weight, (const float*)capacity,
+      (const unsigned char*)mask, (const int*)active, (const float*)outdeg,
+      (const float*)wdeg, pack(states, R::NC),
+      pack(outs, R::NLEV + (need_hp ? R::NC : 0)), n_j, width, nv, need_hp);
+  return (int)cudaGetLastError();
+}
+
+template <class K>
+inline void walk_attributes(K kernel, int* out) {
+  cudaFuncAttributes a;
+  cudaFuncGetAttributes(&a, kernel);
+  out[0] = a.numRegs;
+  out[1] = resident_blocks(kernel);
+}
+
 }  // namespace grafs
 
 // Plain C entry points of one round's library; each returns the
-// cudaGetLastError() of its launch (0 = launched).  grafs_walk_attributes
-// writes the push and resolve kernels' registers per thread and grids
-// (push registers, push grid, resolve registers, resolve grid).
+// cudaGetLastError() of its launch (0 = launched).  grafs_pull runs the
+// pull kernel with the given activity when act_out is null, else with the
+// activity derived from the static tiles in tile_act (written to act_out).
+// grafs_walk_attributes writes the walking kernels' registers per thread
+// and grids: push, resolve, pull (given), pull (derived), a pair each.
 #define GRAFS_DEFINE_ENTRY_POINTS(R)                                          \
-  extern "C" int grafs_pull(const void* tile_act, const void* srcs,          \
-                            const void* weight, const void* capacity,        \
-                            const void* mask, const void* active,            \
-                            const void* outdeg, const void* wdeg,            \
-                            void* const* states, void* const* outs,          \
-                            int n_tiles, int n_j, int width, float nv,       \
-                            int need_hp, void* stream) {                     \
-    grafs::pull_kernel<R><<<n_tiles, grafs::THREADS, 0,                      \
-                            (cudaStream_t)stream>>>(                         \
-        (const int*)tile_act, (const int*)srcs, (const float*)weight,        \
-        (const float*)capacity, (const unsigned char*)mask,                  \
-        (const int*)active, (const float*)outdeg, (const float*)wdeg,        \
-        grafs::pack(states, R::NC),                                          \
-        grafs::pack(outs, R::NLEV + (need_hp ? R::NC : 0)), n_j, width, nv,  \
-        need_hp);                                                            \
-    return (int)cudaGetLastError();                                          \
+  extern "C" int grafs_pull(const void* tile_act, void* act_out,             \
+                            const void* srcs, const void* weight,            \
+                            const void* capacity, const void* mask,          \
+                            const void* active, const void* outdeg,          \
+                            const void* wdeg, void* const* states,           \
+                            void* const* outs, int n_tiles, int n_j,         \
+                            int width, float nv, int need_hp,                \
+                            void* stream) {                                  \
+    return act_out == nullptr                                                \
+        ? grafs::launch_pull<R, false>(                                      \
+              tile_act, act_out, srcs, weight, capacity, mask, active,       \
+              outdeg, wdeg, states, outs, n_tiles, n_j, width, nv, need_hp,  \
+              stream)                                                        \
+        : grafs::launch_pull<R, true>(                                       \
+              tile_act, act_out, srcs, weight, capacity, mask, active,       \
+              outdeg, wdeg, states, outs, n_tiles, n_j, width, nv, need_hp,  \
+              stream);                                                       \
   }                                                                          \
   extern "C" int grafs_push(const void* tile_act, const void* dsts,          \
                             const void* weight, const void* capacity,        \
@@ -540,12 +615,9 @@ inline Ptrs pack(void* const* p, int n) {
     return (int)cudaGetLastError();                                          \
   }                                                                          \
   extern "C" int grafs_walk_attributes(int* out) {                           \
-    cudaFuncAttributes a;                                                    \
-    cudaFuncGetAttributes(&a, grafs::push_kernel<R>);                        \
-    out[0] = a.numRegs;                                                      \
-    out[1] = grafs::resident_blocks(grafs::push_kernel<R>);                  \
-    cudaFuncGetAttributes(&a, grafs::resolve_kernel<R>);                     \
-    out[2] = a.numRegs;                                                      \
-    out[3] = grafs::resident_blocks(grafs::resolve_kernel<R>);               \
+    grafs::walk_attributes(grafs::push_kernel<R>, out);                      \
+    grafs::walk_attributes(grafs::resolve_kernel<R>, out + 2);               \
+    grafs::walk_attributes(grafs::pull_kernel<R, false>, out + 4);           \
+    grafs::walk_attributes(grafs::pull_kernel<R, true>, out + 6);            \
     return (int)cudaGetLastError();                                          \
   }

@@ -14,6 +14,7 @@ means the CUDA card; without one they raise unless the caller passed
 from __future__ import annotations
 
 import dataclasses
+import functools
 import weakref
 from typing import Optional
 
@@ -339,6 +340,13 @@ class BlockedELL:
     mask: torch.Tensor       # [n_pad, width] bool
     tile_nnz: torch.Tensor   # [n_pad/block_v, width/block_e] int32
     direction: str = "in"
+
+    @functools.cached_property
+    def tiles_static(self) -> torch.Tensor:
+        """int32 [n_pad/block_v, width/block_e]: 1 where the tile holds a
+        real slot (``tile_nnz > 0``).  Built once per layout: the tile list
+        the sweeps walk when every tile that can run may run."""
+        return (self.tile_nnz > 0).to(torch.int32)
 
     @property
     def srcs(self) -> torch.Tensor:

@@ -9,7 +9,9 @@ instantiated per fused round from the round's synthesized P expressions by
                     tile, gather each component's state once, apply every P
                     with the C3 guard, run each plan's lexicographic chain and
                     write one candidate per (row, slot tile) per level, plus
-                    the fused has-pred probe.
+                    the fused has-pred probe; ``pull_sweep_frontier`` is the
+                    same kernel deriving the frontier's tile activity itself
+                    (an output) from the layout's static tiles.
 ``push_sweep``    — the push sweep (replaces ``_push_kernel``): per-edge
                     candidates over the out-layout, written on the card only
                     into the tiles the frontier keeps.
@@ -19,10 +21,14 @@ instantiated per fused round from the round's synthesized P expressions by
                     push sweep ran, then the pull sweep's lex chain, plus the
                     fused has-pred probe of the push− models.
 
-The push and resolve kernels walk only the active tiles: a grid sized to
-the card deals the tiles to its blocks in turn, each block reads its
-tiles' activity words and a ballot hands it the active ones, so a push
-iteration moves its live tiles and not the whole out-rectangle.
+The three kernels walk only their live tiles: a grid sized to the card
+deals the tiles to its blocks in turn, each block reads its tiles'
+activity words and a ballot hands it the active ones, so an iteration
+moves its live tiles and not the whole rectangle.  The pull kernel's
+derived mode walks the layout's static non-empty tiles and decides per
+tile, by a vote of the whole block, whether a real slot has an active
+source; the frontier's pull tile activity then needs no torch gather over
+the rectangle.
 
 ``ell_level_reduce`` (replaces ``_level_kernel``) is the per-level reference
 sweep outside the main path: one lex level per launch into a [n_pad]
@@ -39,10 +45,11 @@ which repeats the kernel's arithmetic and its fixed reduction order
 kernel and plain version agree bitwise on the card.  There is no fallback
 from a CUDA tensor to the plain version.
 
-``fused_ell_sweep`` / ``fused_ell_push_sweep`` wrap the tile passes with the
-cross-tile fold (``_fold_tile_candidates``, torch, shared by pull and sorted
-push so push(sorted) ≡ pull bitwise) and the push resolutions; the frontier
-tile-activity helpers are torch ops.
+``fused_ell_sweep`` / ``fused_ell_sweep_frontier`` / ``fused_ell_push_sweep``
+wrap the tile passes with the cross-tile fold (``_fold_tile_candidates``,
+torch, shared by pull and sorted push so push(sorted) ≡ pull bitwise) and
+the push resolutions; the other tile-activity helpers are torch ops
+(``tile_activity`` stays as the derived mode's plain version).
 """
 from __future__ import annotations
 
@@ -135,13 +142,14 @@ class SweepRound:
         return self._lib
 
     def walk_attributes(self) -> dict:
-        """Registers per thread and grid (blocks) of the push and resolve
-        kernels, which walk the active tiles on a grid sized to the card
-        (needs the card)."""
-        out = (ctypes.c_int * 4)()
+        """Registers per thread and grid (blocks) of the kernels that walk
+        their tiles on a grid sized to the card: push, resolve, and pull
+        with the given and with the derived activity (needs the card)."""
+        out = (ctypes.c_int * 8)()
         _raise_on(self.library().grafs_walk_attributes(out), "attributes")
-        return {"push_registers": out[0], "push_grid": out[1],
-                "resolve_registers": out[2], "resolve_grid": out[3]}
+        names = ("push", "resolve", "pull", "pull_derived")
+        return {f"{k}_{what}": out[2 * i + w] for i, k in enumerate(names)
+                for w, what in enumerate(("registers", "grid"))}
 
 
 def _scalar(ident, dtype):
@@ -234,41 +242,94 @@ def _check_layout(rect, tile_act):
 
 def pull_sweep(rnd: SweepRound, tile_act, srcs, weight, capacity, mask,
                active, outdeg, wdeg, states, nv: float,
-               need_hp: bool = False):
-    """Per-tile candidates of the pull sweep: a list with one [n_pad, n_j]
-    array per lex level (plan order), then, with ``need_hp``, one int32
-    [n_pad, n_j] has-pred array per component.  ``states`` lists the
-    [n_pad] state vectors in ``rnd.comps_order``; ``active`` is int32."""
-    if not srcs.is_cuda:
-        return _pull_plain(rnd, tile_act, srcs, weight, capacity, mask,
-                           active, outdeg, wdeg, states, nv, need_hp)
+               need_hp: bool = False, out=None):
+    """Per-tile candidates of the pull sweep with the given tile activity:
+    a list with one [n_pad, n_j] array per lex level (plan order), then,
+    with ``need_hp``, one int32 [n_pad, n_j] has-pred array per component.
+    ``states`` lists the [n_pad] state vectors in ``rnd.comps_order``;
+    ``active`` is int32.  A tile that ``tile_act`` skips holds the
+    identities (has-pred 0).  ``out``, preallocated arrays of those shapes
+    and dtypes, receives the result."""
+    return _pull(rnd, tile_act, False, srcs, weight, capacity, mask, active,
+                 outdeg, wdeg, states, nv, need_hp, out)[0]
+
+
+def pull_sweep_frontier(rnd: SweepRound, tiles_static, srcs, weight,
+                        capacity, mask, active, outdeg, wdeg, states,
+                        nv: float, need_hp: bool = False, out=None):
+    """The pull sweep with the frontier's tile activity derived inside the
+    kernel.  ``tiles_static`` is the layout's static tile list
+    (``BlockedELL.tiles_static``, int32 ``tile_nnz > 0``).  Returns ``(outs,
+    tile_act)``: ``tile_act`` is the int32 [n_i, n_j] frontier tile
+    activity, bitwise ``tile_activity(srcs, mask, tile_nnz, active)``, and
+    ``outs`` what ``pull_sweep`` returns for it.  ``out`` lists
+    preallocated arrays for ``outs`` followed by one for ``tile_act``."""
+    return _pull(rnd, tiles_static, True, srcs, weight, capacity, mask,
+                 active, outdeg, wdeg, states, nv, need_hp, out)
+
+
+def _pull(rnd, tiles, derive, srcs, weight, capacity, mask, active, outdeg,
+          wdeg, states, nv, need_hp, out):
+    """Both pull modes: ``tiles`` is the tile activity (``derive`` False)
+    or the static tile list (``derive`` True).  Returns (outs, derived
+    activity or None)."""
     n_pad, width = srcs.shape
-    _check_layout(srcs, tile_act)
-    for name, t, dt in (("srcs", srcs, torch.int32),
-                        ("weight", weight, torch.float32),
-                        ("capacity", capacity, torch.float32),
-                        ("mask", mask, torch.bool)):
-        _check(name, t, dt, (n_pad, width))
+    n_i, n_j = n_pad // BLOCK_V, width // BLOCK_E
+    name = "tiles_static" if derive else "tile_act"
+    if tuple(tiles.shape) != (n_i, n_j) or tiles.dtype != torch.int32:
+        raise ValueError(f"{name} must be int32 of the layout's tile grid "
+                         f"{(n_i, n_j)}, got {tiles.dtype} "
+                         f"{tuple(tiles.shape)}")
+    dtypes = [rnd.dtypes[pos] for spec in rnd.plan_specs
+              for pos, _op in spec] + [torch.int32] * (len(states) * need_hp)
+    n_out = len(dtypes) + derive
+    if out is not None and len(out) != n_out:
+        raise ValueError(f"out needs {n_out} arrays, got {len(out)}")
+    if not srcs.is_cuda:
+        act = tile_activity(srcs, mask, tiles, active) if derive else tiles
+        got = _pull_plain(rnd, act, srcs, weight, capacity, mask, active,
+                          outdeg, wdeg, states, nv, need_hp)
+        if derive:
+            got.append(act)
+        if out is not None:
+            for o, g in zip(out, got):
+                o.copy_(g)
+            got = list(out)
+        return (got[:-1], got[-1]) if derive else (got, None)
+    _check_layout(srcs, tiles)
+    for nm, t, dt in (("srcs", srcs, torch.int32),
+                      ("weight", weight, torch.float32),
+                      ("capacity", capacity, torch.float32),
+                      ("mask", mask, torch.bool)):
+        _check(nm, t, dt, (n_pad, width))
     _check("active", active, torch.int32, (n_pad,))
     _check("outdeg", outdeg, torch.float32, (n_pad,))
     _check("wdeg", wdeg, torch.float32, (n_pad,))
     for k, (st, dt) in enumerate(zip(states, rnd.dtypes)):
         _check(f"state[{k}]", st, dt, (n_pad,))
+    if out is None:
+        out = [torch.empty((n_pad, n_j), dtype=dt, device=srcs.device)
+               for dt in dtypes]
+        if derive:
+            out.append(torch.empty((n_i, n_j), dtype=torch.int32,
+                                   device=srcs.device))
+    for k, o in enumerate(out):
+        if k < len(dtypes):
+            _check(f"out[{k}]", o, dtypes[k], (n_pad, n_j))
+        else:
+            _check(f"out[{k}]", o, torch.int32, (n_i, n_j))
+    outs, act_out = (list(out[:-1]), out[-1]) if derive \
+        else (list(out), None)
     lib = rnd.library()
-    n_i, n_j = n_pad // BLOCK_V, width // BLOCK_E
-    outs = [torch.empty((n_pad, n_j), dtype=rnd.dtypes[pos], device=srcs.device)
-            for spec in rnd.plan_specs for pos, _op in spec]
-    if need_hp:
-        outs += [torch.empty((n_pad, n_j), dtype=torch.int32,
-                             device=srcs.device) for _ in states]
     status = lib.grafs_pull(
-        tile_act.data_ptr(), srcs.data_ptr(), weight.data_ptr(),
-        capacity.data_ptr(), mask.data_ptr(), active.data_ptr(),
-        outdeg.data_ptr(), wdeg.data_ptr(), _ptrs(states), _ptrs(outs),
-        n_i * n_j, n_j, width, float(nv), int(need_hp), _stream(srcs))
+        tiles.data_ptr(), None if act_out is None else act_out.data_ptr(),
+        srcs.data_ptr(), weight.data_ptr(), capacity.data_ptr(),
+        mask.data_ptr(), active.data_ptr(), outdeg.data_ptr(),
+        wdeg.data_ptr(), _ptrs(states), _ptrs(outs), n_i * n_j, n_j, width,
+        float(nv), int(need_hp), _stream(srcs))
     _raise_on(status, "pull")
     LAUNCHES["pull"] += 1
-    return outs
+    return outs, act_out
 
 
 def _pull_plain(rnd, tile_act, srcs, weight, capacity, mask, active, outdeg,
@@ -717,6 +778,21 @@ def fused_ell_sweep(rnd: SweepRound, srcs, weight, capacity, mask, tile_act,
     if return_candidates:
         return red, hp, outs
     return red, hp
+
+
+def fused_ell_sweep_frontier(rnd: SweepRound, srcs, weight, capacity, mask,
+                             tiles_static, states: dict, active, outdeg,
+                             wdeg, nv: float):
+    """The pull sweep of an idempotent round with the frontier's tile
+    activity derived in the kernel (``pull_sweep_frontier``), plus the
+    cross-tile fold: ``(red, tile_act)``."""
+    st = [states[c] for c in rnd.comps_order]
+    outs, tile_act = pull_sweep_frontier(rnd, tiles_static, srcs, weight,
+                                         capacity, mask,
+                                         active.to(torch.int32), outdeg,
+                                         wdeg, st, nv)
+    red, _ = _fold_tile_candidates(rnd, outs)
+    return red, tile_act
 
 
 def fused_ell_push_sweep(rnd: SweepRound, dsts, weight, capacity, mask,

@@ -12,7 +12,13 @@ switch needs it); ``lax.cond`` becomes a Python branch on the Gemini rule
 — push while Σ out_deg(frontier) ≤ |E|/k, ``SWITCH_K`` = 20 by default,
 ``switch_k=None`` falling back to the ``DENSE_FRONTIER`` vertex fraction.
 Non-idempotent rounds run the pull− recompute with the fused has-pred
-probe, or push− with sorted resolution under ``model="push"``.
+probe, or push− with sorted resolution under ``model="push"``.  An
+idempotent pull iteration runs the pull kernel in its derived-activity
+mode: it walks the layout's static tiles, decides the frontier's tile
+activity itself and returns it for the edge-work counter, so no torch
+gather over the in-layout rectangle runs per iteration.  Each sweep step
+runs under a ``grafs::pull`` or ``grafs::push`` profiler range, by which a
+trace attributes its device time.
 
 The carry is the reference's nine fields: state, active, k, work, pushes,
 resolve work, gather work, divergence, residual.  The work counters are
@@ -25,9 +31,11 @@ kernels' entry points under the names the reference's ``ops`` gives them.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import iterate
 from repro_torch.core.plan import (DENSE_FRONTIER, PUSH_RESOLUTION,
@@ -81,6 +89,16 @@ def sweep_round(comps, plans) -> _er.SweepRound:
     _EXEC_CACHE[key] = (rnd, tuple((cr.p_fn, cr.init_fn, cr.e_fn)
                                    for cr in comps))
     return rnd
+
+
+def _step_range(direction: str):
+    """The profiler range ``grafs::<direction>`` around one sweep step, by
+    which a trace attributes the step's device time.  Opened only while a
+    profiler records: a range costs microseconds of host time even when
+    none does, the check a fraction of one."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(f"grafs::{direction}")
+    return contextlib.nullcontext()
 
 
 def _directions_used(direction: str, idempotent: bool):
@@ -162,7 +180,7 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
     num_edges = int(first.tile_nnz.sum())
     nv = float(n)
 
-    tiles_static = (first.tile_nnz > 0).to(torch.int32)
+    tiles_static = first.tiles_static
     # A non-idempotent round sweeps every tile each iteration, so under
     # sorted resolution its resolution-tile activity is the same every
     # iteration (every live tile, which is also what the resolve kernel's
@@ -222,12 +240,18 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
             d = ("push" if use_push else "pull") if switching else use[0]
             e = ell[d]
             if d == "pull":
-                tile_act = _er.tile_activity(e.nbrs, e.mask, e.tile_nnz,
-                                             active_i32)
+                # the kernel derives the frontier's tile activity (an output)
+                with _step_range("pull"):
+                    red, tile_act = _er.fused_ell_sweep_frontier(
+                        rnd, e.nbrs, e.weight, e.capacity, e.mask,
+                        e.tiles_static, state_d, active_i32, out_deg_pad,
+                        wdeg_pad, nv)
+                res_w = gat_w = 0
             else:
-                tile_act = _er.tile_activity_push(e.tile_nnz, active_i32)
-            red, _hp, res_w, gat_w = sweep(d, state_d, active_i32, tile_act,
-                                           False)
+                with _step_range("push"):
+                    tile_act = _er.tile_activity_push(e.tile_nnz, active_i32)
+                    red, _hp, res_w, gat_w = sweep(d, state_d, active_i32,
+                                                   tile_act, False)
             work = work + (e.tile_nnz.to(torch.int64) * tile_act).sum()
             new_d = {}
             for p in plans:
@@ -236,8 +260,9 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
         else:
             d = use[0]
             work = work + num_edges
-            red, hp, res_w, gat_w = sweep(d, state_d, ones_act, tiles_static,
-                                          True)
+            with _step_range(d):
+                red, hp, res_w, gat_w = sweep(d, state_d, ones_act,
+                                              tiles_static, True)
             red = iterate._apply_epilogue(comps, red)
             new_d = iterate._recompute_merge(plans, comps_by_idx, state_d,
                                              red, hp)

@@ -132,6 +132,97 @@ def test_pull_plain_matches_pallas(name, density):
                    loose)
 
 
+@pytest.mark.parametrize("density", [0.0, 0.05, 1.0])
+@pytest.mark.parametrize("name", ROUNDS)
+def test_pull_frontier_plain_matches_pallas(name, density):
+    """The derived-activity pull (its plain version: ``tile_activity`` then
+    ``_pull_plain``) against the reference's ``tile_activity`` and Pallas
+    ``_fused_kernel``: candidates, has-pred and the activity array, on a
+    graph with empty tiles and rows without a real slot."""
+    jg, tg, jc, jp, rnd, active, outdeg, wdeg, states = _setup(name, density)
+    from repro.kernels.ops import _plan_levels
+    levels = tuple(tuple(_plan_levels(p)) for p in jp)
+    ell = JS.to_blocked_ell(jg)
+    tile_act = JER.tile_activity(ell.srcs, ell.mask, ell.tile_nnz,
+                                 jnp.asarray(active), 8, 128)
+    by = {cr.idx: cr for cr in jc}
+    _red, _hp, want = JER.fused_ell_sweep(
+        ell.srcs, ell.weight, ell.capacity, ell.mask, tile_act,
+        {c: jnp.asarray(s) for c, s in states.items()}, jnp.asarray(active),
+        jnp.asarray(outdeg), plans=levels,
+        idents={c: by[c].ident for c in by},
+        p_fns={c: by[c].p_fn for c in by}, nv=float(jg.n),
+        need_haspred=True, wdeg=jnp.asarray(wdeg), return_candidates=True)
+    tell = TS.to_blocked_ell(tg)
+    assert bool((tell.tile_nnz == 0).any())
+    assert bool((~tell.mask.any(dim=1)).any())
+    np.testing.assert_array_equal(tell.tiles_static.numpy(),
+                                  (np.asarray(ell.tile_nnz) > 0)
+                                  .astype(np.int32))
+    got, t_tile = TER.pull_sweep_frontier(
+        rnd, tell.tiles_static, tell.nbrs, tell.weight, tell.capacity,
+        tell.mask, _t(active), _t(outdeg), _t(wdeg),
+        [_t(states[c]) for c in rnd.comps_order], float(jg.n), need_hp=True)
+    assert t_tile.dtype == torch.int32
+    np.testing.assert_array_equal(t_tile.numpy(), np.asarray(tile_act))
+    assert len(got) == rnd.n_levels + len(rnd.comps_order)
+    loose = _float_sum_levels(rnd) + [False] * len(rnd.comps_order)
+    _assert_levels([g.numpy() for g in got], [np.asarray(w) for w in want],
+                   loose)
+
+
+def _pull_inputs(name, density):
+    """The pull side of one round on the RM-XS graph: (rnd, in-layout, the
+    arguments after the tile list)."""
+    _jg, tg, _jc, _jp, rnd, active, outdeg, wdeg, states = _setup(name,
+                                                                  density)
+    ein = TS.to_blocked_ell(tg)
+    rest = (ein.nbrs, ein.weight, ein.capacity, ein.mask, _t(active),
+            _t(outdeg), _t(wdeg), [_t(states[c]) for c in rnd.comps_order],
+            float(tg.n))
+    return rnd, ein, rest
+
+
+def test_pull_rejects_tiles_off_the_layout():
+    rnd, ein, rest = _pull_inputs("BFS", 0.3)
+    tiles = ein.tiles_static
+    for bad in (tiles[:-1], tiles[:, :1], tiles.bool()):
+        with pytest.raises(ValueError, match="tiles_static must be int32 of "
+                                             "the layout's tile grid"):
+            TER.pull_sweep_frontier(rnd, bad, *rest)
+        with pytest.raises(ValueError, match="tile_act must be int32 of the "
+                                             "layout's tile grid"):
+            TER.pull_sweep(rnd, bad, *rest)
+    with pytest.raises(ValueError,
+                       match=f"out needs {rnd.n_levels + 1} arrays"):
+        TER.pull_sweep_frontier(rnd, tiles, *rest,
+                                out=[torch.empty(1, dtype=torch.int32)])
+
+
+@pytest.mark.parametrize("mode", ["given", "derived"])
+def test_pull_sweep_writes_into_out(mode):
+    rnd, ein, rest = _pull_inputs("WSP", 0.3)
+    act = TER.tile_activity(ein.nbrs, ein.mask, ein.tile_nnz, rest[4])
+    if mode == "given":
+        want = TER.pull_sweep(rnd, act, *rest, need_hp=True)
+        out = [torch.empty_like(w) for w in want]
+        got = TER.pull_sweep(rnd, act, *rest, need_hp=True, out=out)
+    else:
+        w_outs, w_act = TER.pull_sweep_frontier(rnd, ein.tiles_static, *rest,
+                                                need_hp=True)
+        want = [*w_outs, w_act]
+        out = [torch.empty_like(w) for w in want]
+        g_outs, g_act = TER.pull_sweep_frontier(rnd, ein.tiles_static, *rest,
+                                                need_hp=True, out=out)
+        got = [*g_outs, g_act]
+        assert torch.equal(w_act, act)
+    assert len(got) == len(out) == rnd.n_levels + len(rnd.comps_order) + \
+        (mode == "derived")
+    assert all(g is o for g, o in zip(got, out))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("density", DENSITIES)
 @pytest.mark.parametrize("name", ROUNDS)
 def test_push_and_resolve_plain_match_pallas(name, density):

@@ -6,6 +6,8 @@ for int/min/max/or/and rounds and allclose (rtol 1e-5, atol 1e-7) for float
 sums, whose reduction order differs; iterations, push/pull split and the
 work counters equal.  The RM-XS targets are BENCH_pallas.json's direction
 and resolution rows."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -84,6 +86,54 @@ def test_rm_xs_targets():
     assert (auto.iterations, auto.push_iters, auto.pull_iters,
             auto.edge_work) == (8, 3, 5, 13703)
     assert pull.edge_work == 16635
+
+
+def test_cuda_engine_pull_derives_tile_activity(monkeypatch):
+    """Every idempotent pull iteration goes through the derived-activity
+    pull (``pull_sweep_frontier``, one call each) and keeps the RM-XS
+    counters; PageRank's pull− recompute walks the static tiles with the
+    given activity (``pull_sweep``) instead."""
+    derived, given = [], []
+
+    def counting(fn, log):
+        def spy(*args, **kwargs):
+            log.append(1)
+            return fn(*args, **kwargs)
+        return spy
+
+    monkeypatch.setattr(TER, "pull_sweep_frontier",
+                        counting(TER.pull_sweep_frontier, derived))
+    monkeypatch.setattr(TER, "pull_sweep", counting(TER.pull_sweep, given))
+    _jg, tg = _pair(weighted=False)
+    bfs = TF.fuse(TU.ALL_SPECS["BFS"]())
+    auto = TE.run_program(tg, bfs, engine="cuda", device="cpu").stats
+    assert (auto.iterations, auto.pull_iters, auto.edge_work) == (6, 3, 7854)
+    assert len(derived) == auto.pull_iters and not given
+    del derived[:]
+    pull = TE.run_program(tg, bfs, engine="cuda", model="pull",
+                          device="cpu").stats
+    assert (pull.iterations, pull.edge_work) == (6, 9715)
+    assert len(derived) == pull.iterations and not given
+    del derived[:]
+    pr = TE.run_direct(tg, TSy.pagerank_kernels(tg.n), engine="cuda",
+                       device="cpu").stats
+    assert not derived and len(given) == pr.iterations > 0
+
+
+def test_cuda_engine_marks_sweep_steps_for_the_profiler():
+    """Under torch.profiler every sweep step runs inside one
+    ``grafs::pull`` or ``grafs::push`` range (a trace attributes the step's
+    device time by them); without a profiler none is opened."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops as TO
+    _jg, tg = _pair(weighted=False)
+    bfs = TF.fuse(TU.ALL_SPECS["BFS"]())
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        st = TE.run_program(tg, bfs, engine="cuda", device="cpu").stats
+    names = [e.name for e in prof.events()]
+    assert names.count("grafs::pull") == st.pull_iters == 3
+    assert names.count("grafs::push") == st.push_iters == 3
+    assert isinstance(TO._step_range("pull"), contextlib.nullcontext)
 
 
 def test_weighted_pagerank_push_equals_pull_bitwise():

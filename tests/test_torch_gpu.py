@@ -63,6 +63,11 @@ def _round(name, n):
                           [leaf.plan for leaf in rnd.leaves])
 
 
+def _counters(s):
+    return (s.iterations, s.push_iters, s.pull_iters, s.edge_work,
+            s.resolve_work, s.gather_work)
+
+
 def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
@@ -76,20 +81,13 @@ def _slots_of_tiles(tile_act):
         .repeat_interleave(128, dim=1) != 0
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("density", [0.05, 1.0])
-@pytest.mark.parametrize("name", ["BFS", "WSP", "WPR"])
-def test_kernels_match_plain_on_card(cuda_device, name, density):
-    """Pull in full; push on the tiles it runs (a skipped tile's candidates
-    are undefined on the card); resolve and its has-pred in full, once from
-    a fresh push buffer and once from one poisoned with a NaN payload before
-    the push launch."""
-    dev = cuda_device
+def _card_inputs(dev, name, density):
+    """The RM-XS graph on the card, one round's sweep shape, a frontier of
+    the given density and random states (a quarter ⊥): (g, rnd, active,
+    outdeg, wdeg, states)."""
     g = TS.rmat_graph(400, 3200, seed=11, device=dev)
     rnd = _round(name, g.n)
-    ein, eout = TS.to_blocked_ell(g), TS.to_blocked_ell(g, direction="out")
-    res = TS.to_push_resolution(g)
-    n_pad = ein.n_pad
+    n_pad = TS.to_blocked_ell(g).n_pad
     rng = np.random.default_rng(3)
     act = torch.from_numpy((rng.random(n_pad) < density).astype(np.int32))
     act[g.n:] = 0
@@ -105,6 +103,68 @@ def test_kernels_match_plain_on_card(cuda_device, name, density):
             rng.integers(0, 50, n_pad).astype(np.int32)
         v[rng.random(n_pad) < 0.25] = ident
         st.append(torch.from_numpy(v).to(dev))
+    return g, rnd, act, od, wd, st
+
+
+def _poisoned_like(ts):
+    """Buffers of the shapes and dtypes of ``ts``, every word the NaN
+    payload."""
+    return [torch.full(tuple(t.shape), _POISON, dtype=torch.int32,
+                       device=t.device).view(t.dtype) for t in ts]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [0.0, 0.05, 1.0])
+@pytest.mark.parametrize("name", ["BFS", "WSP", "WPR"])
+def test_pull_frontier_matches_plain_on_card(cuda_device, name, density):
+    """The derived-activity pull against its plain version (the torch
+    ``tile_activity``, then ``_pull_plain``), bitwise: candidates, has-pred
+    and the activity array, into fresh buffers and into buffers poisoned
+    with a NaN payload (every word must be overwritten: the walk writes the
+    static tiles, the grid-stride pass the empty ones).  The given-activity
+    pull from poisoned buffers too."""
+    dev = cuda_device
+    g, rnd, act, od, wd, st = _card_inputs(dev, name, density)
+    e = TS.to_blocked_ell(g)
+    assert bool((e.tile_nnz == 0).any())
+    args = (e.nbrs, e.weight, e.capacity, e.mask, act, od, wd, st,
+            float(g.n))
+    TER.reset_launches()
+    outs, t_act = TER.pull_sweep_frontier(rnd, e.tiles_static, *args,
+                                          need_hp=True)
+    torch.cuda.synchronize()
+    assert TER.LAUNCHES["pull"] == 1
+    want_act = TER.tile_activity(e.nbrs, e.mask, e.tile_nnz, act)
+    want = TER._pull_plain(rnd, want_act, *args, True)
+    assert len(outs) == len(want) == rnd.n_levels + len(rnd.comps_order)
+    assert t_act.dtype == torch.int32 and torch.equal(t_act, want_act)
+    for a, b in zip(outs, want):
+        assert torch.equal(_bits(a), _bits(b))
+    p_outs, p_act = TER.pull_sweep_frontier(
+        rnd, e.tiles_static, *args, need_hp=True,
+        out=_poisoned_like([*outs, t_act]))
+    g_outs = TER.pull_sweep(rnd, want_act, *args, need_hp=True,
+                            out=_poisoned_like(outs))
+    torch.cuda.synchronize()
+    assert TER.LAUNCHES["pull"] == 3
+    assert torch.equal(p_act, want_act)
+    for a, b, c in zip(p_outs, g_outs, want):
+        assert torch.equal(_bits(a), _bits(c))
+        assert torch.equal(_bits(b), _bits(c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [0.05, 1.0])
+@pytest.mark.parametrize("name", ["BFS", "WSP", "WPR"])
+def test_kernels_match_plain_on_card(cuda_device, name, density):
+    """Pull in full; push on the tiles it runs (a skipped tile's candidates
+    are undefined on the card); resolve and its has-pred in full, once from
+    a fresh push buffer and once from one poisoned with a NaN payload before
+    the push launch."""
+    dev = cuda_device
+    g, rnd, act, od, wd, st = _card_inputs(dev, name, density)
+    ein, eout = TS.to_blocked_ell(g), TS.to_blocked_ell(g, direction="out")
+    res = TS.to_push_resolution(g)
     t_in = TER.tile_activity(ein.nbrs, ein.mask, ein.tile_nnz, act)
     t_out = TER.tile_activity_push(eout.tile_nnz, act)
     t_res = TER.resolution_tile_activity(res.contrib, t_out, res.tile_nnz)
@@ -222,9 +282,15 @@ def test_cuda_engine_on_card_matches_pull(cuda_device, name):
     torch.cuda.synchronize()
     assert TER.LAUNCHES["pull"] > 0 and TER.LAUNCHES["push"] > 0
     assert TER.LAUNCHES["resolve"] == TER.LAUNCHES["push"]
+    assert TER.LAUNCHES["pull"] == got.stats.pull_iters
     want = TE.run_program(g, prog, engine="pull")
     assert torch.equal(got.value, want.value)
     assert got.stats.engine_used == "cuda"
+    # the same query on the plain versions: equal answer and counters
+    cpu = TE.run_program(TS.from_arrays(g.n, *g.host_edges(), device="cpu"),
+                         prog, engine="cuda", device="cpu")
+    assert torch.equal(got.value.cpu(), cpu.value)
+    assert _counters(got.stats) == _counters(cpu.stats)
 
 
 @pytest.mark.gpu
