@@ -4,7 +4,7 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // _flash_kernel (launched by flash_attention) for bfloat16 inputs; float32
-// calls take flash_attention.cu's CUDA-core kernel.  For q [B, H, S, D] and
+// calls take flash_attention_3xtf32.cu's kernel.  For q [B, H, S, D] and
 // k, v [B, Hkv, T, D], all bfloat16, D in {16, 32, 64, 128}:
 //
 //   m ← max(m, rowmax(logits));  p = exp(logits − m) (0 under the mask)
@@ -60,23 +60,18 @@
 // The tensor maps are encoded on the host in the C entry point through
 // cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint(ByVersion),
 // so the library needs no -lcuda.
-#include <cstdint>
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+
+#include "flash_sm90.cuh"
 
 namespace grafs {
 namespace sm90 {
 
-constexpr int WG_THREADS = 128;
 constexpr int CONSUMERS = 2;                  // warpgroups of 64 query rows
 constexpr int BQ = 64 * CONSUMERS;            // query rows per block
 constexpr int BK = 64;                        // keys per KV tile
 constexpr int STAGES = 3;                     // K/V slots in the ring
 constexpr int THREADS = CONSUMERS * WG_THREADS + 32;   // + the producer warp
-constexpr float NEG = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // The shared-memory geometry at head dim D.  Every box starts on a 1024-byte
 // boundary, a multiple of each swizzle pattern's period.
@@ -97,73 +92,6 @@ struct Geo {
   static constexpr int KV_BYTES = NBOX * KV_BOX;    // K or V of one slot
   static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the barrier's phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra.uni LAB_DONE;\nbra.uni LAB_WAIT;\nLAB_DONE:\n}\n"
-      ::"r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-      "r"(c1), "r"(c2) : "memory");
-}
-
-// A wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle layout.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed wgmma groups are still running (groups
-// complete in order).
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from reading accumulators before wgmma.wait_group.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // D(64×N, float32) (+)= A(64×16, shared memory, K-major) · B(16×N, shared
 // memory, K-major); scale_d = 0 overwrites D.
@@ -309,33 +237,6 @@ __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
                  __float2bfloat16_rn(b - __bfloat162float(hb)));
 }
 
-// The keys that rows [qa, qb] see through the masks, [lo, hi).
-__device__ __forceinline__ void key_range(int qa, int qb, int T_, int causal,
-                                          int chunk, int& lo, int& hi) {
-  lo = 0;
-  hi = T_;
-  if (causal) hi = min(hi, qb + 1);
-  if (chunk > 0) {
-    lo = (qa / chunk) * chunk;
-    hi = min(hi, (qb / chunk + 1) * chunk);
-  }
-}
-
-__device__ __forceinline__ bool visible(int key, int row, int T_, int causal,
-                                        int chunk) {
-  return key < T_ && (!causal || key <= row) &&
-         (chunk <= 0 || key / chunk == row / chunk);
-}
-
-// The mask and scaling facts a warpgroup's softmax needs.
-struct Rows {
-  int wq0, wq1;         // first and last live row of the warpgroup
-  int r0;               // this thread's first row (the other is r0 + 8)
-  int c_lane;           // this thread's first column in each n8 block
-  int T_, causal, chunk;
-  float scale_log2;
-};
-
 // S(64×BK) = Q(64×D)·K_tileᵀ, issued as one wgmma group.
 template <int D>
 __device__ __forceinline__ void issue_scores(float (&sc)[BK / 2],
@@ -372,66 +273,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
     wgmma_rs<D>(o, pl[kk], dv);
   }
   wg_commit();
-}
-
-// Masks the scores of the tile at key k0 (only where it straddles an edge
-// of the mask), folds them into the rows' running max m and sum l, and
-// turns them into p in place.  a0, a1: the factors α that rescale the
-// rows' earlier accumulators.
-__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], int k0,
-                                             const Rows& w, float& m0,
-                                             float& m1, float& l0, float& l1,
-                                             float& a0, float& a1) {
-  bool clean = k0 + BK <= w.T_;
-  if (w.causal) clean = clean && k0 + BK - 1 <= w.wq0;
-  if (w.chunk > 0) {
-    const int c = w.wq0 / w.chunk;
-    clean = clean && w.wq1 / w.chunk == c && k0 / w.chunk == c &&
-            (k0 + BK - 1) / w.chunk == c;
-  }
-  if (!clean) {
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + 8 * j + w.c_lane + e;
-        if (!visible(key, w.r0, w.T_, w.causal, w.chunk))
-          sc[4 * j + e] = -INFINITY;
-        if (!visible(key, w.r0 + 8, w.T_, w.causal, w.chunk))
-          sc[4 * j + 2 + e] = -INFINITY;
-      }
-    }
-  }
-  float x0 = -INFINITY, x1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
-    x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-  }
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
-    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
-  }
-  const float mn0 = fmaxf(m0, x0 * w.scale_log2);
-  const float mn1 = fmaxf(m1, x1 * w.scale_log2);
-  a0 = exp2f(m0 - mn0);
-  a1 = exp2f(m1 - mn1);
-  m0 = mn0;
-  m1 = mn1;
-  float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      sc[4 * j + e] = exp2f(fmaf(sc[4 * j + e], w.scale_log2, -mn0));
-      sc[4 * j + 2 + e] = exp2f(fmaf(sc[4 * j + 2 + e], w.scale_log2, -mn1));
-      s0 += sc[4 * j + e];
-      s1 += sc[4 * j + 2 + e];
-    }
-  }
-  l0 = l0 * a0 + s0;
-  l1 = l1 * a1 + s1;
 }
 
 // p as wgmma A fragments, high and low part: k16 step kk covers n8 blocks
@@ -565,7 +406,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     issue_scores<D>(sc, q_wg, k_slot(ia));
     wg_wait<0>();
     fence_regs(sc);
-    softmax_tile(sc, (t_lo + ia) * BK, w, m0, m1, l0, l1, a0, a1);
+    softmax_tile<BK>(sc, (t_lo + ia) * BK, w, m0, m1, l0, l1, a0, a1);
     to_fragments(sc, ph, pl);
     // Tile it's scores and tile it − 1's P·V go to the tensor cores
     // together; tile it's softmax runs while P·V is still in flight.
@@ -575,7 +416,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       issue_pv<D>(o, ph, pl, k_slot(it - 1) + G::KV_BYTES);
       wg_wait<1>();
       fence_regs(sc);
-      softmax_tile(sc, (t_lo + it) * BK, w, m0, m1, l0, l1, a0, a1);
+      softmax_tile<BK>(sc, (t_lo + it) * BK, w, m0, m1, l0, l1, a0, a1);
       wg_wait<0>();
       fence_regs(o);
       release(it - 1);
@@ -599,12 +440,8 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // epilogue: the quad's partial sums, then one rounding to bfloat16
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  float d0, d1;
+  row_divisors(l0, l1, d0, d1);
   const long long row0 = static_cast<long long>(bh) * S;
   const int r1 = w.r0 + 8;
 #pragma unroll
@@ -621,56 +458,6 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Host side: tensor maps and the launch.
-// ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 3-D map over a [planes, rows, D] bfloat16 tensor, boxes of
-// (cols, box_rows, 1).  Rows past ``rows`` read as zeros.
-inline bool encode(CUtensorMap* map, const void* ptr, int D, int rows,
-                   long long planes, int cols, int box_rows,
-                   CUtensorMapSwizzle swizzle) {
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(rows) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int Hkv, int S, int T_, int causal, int chunk, float scale,
@@ -685,11 +472,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   CUtensorMap qm, km, vm;
   // T = 0: a map of one (never loaded) row; every block's key range is empty
   const int t_rows = T_ > 0 ? T_ : 1;
-  if (!encode(&qm, q, D, S, bh, G::COLS, BQ, G::SWIZZLE) ||
-      !encode(&km, k, D, t_rows, static_cast<long long>(B) * Hkv, G::COLS,
-              BK, G::SWIZZLE) ||
-      !encode(&vm, v, D, t_rows, static_cast<long long>(B) * Hkv, G::COLS,
-              BK, G::SWIZZLE))
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const long long planes = static_cast<long long>(B) * Hkv;
+  if (!encode(&qm, BF16, 2, q, D, S, bh, G::COLS, BQ, G::SWIZZLE) ||
+      !encode(&km, BF16, 2, k, D, t_rows, planes, G::COLS, BK, G::SWIZZLE) ||
+      !encode(&vm, BF16, 2, v, D, t_rows, planes, G::COLS, BK, G::SWIZZLE))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_sm90_kernel<D>,

@@ -12,8 +12,8 @@ loaded with ``ctypes``:
             includes ``csrc/edge_level.cuh``);
 ``fixed`` — one library for the kernels that are not generated: every
             ``csrc/*.cu`` (embedding bag, ELL softmax, flash attention in
-            bfloat16 on the tensor cores and in float32), included by one
-            unit.
+            bfloat16 and in float32, both on the tensor cores), included by
+            one unit.
 
 A library is named by the content hash of its unit, of every ``csrc/``
 file the unit includes (followed transitively) and of the flags, so a
@@ -132,13 +132,15 @@ def _declare_fixed(lib):
     lib.grafs_embedding_bag.argtypes = [vp, vp, vp, vp, i64, i32, i64, i32,
                                         i32, i32, vp]
     lib.grafs_ell_softmax.argtypes = [vp, vp, vp, i64, i64, i32, vp]
-    lib.grafs_flash_f32.argtypes = [vp] * 4 + [i32] * 8 + [_F32, vp]
-    lib.grafs_flash_sm90.argtypes = [vp] * 4 + [i32] * 8 + [_F32, vp]
-    lib.grafs_flash_sm90_attributes.argtypes = [i32,
-                                                ctypes.POINTER(ctypes.c_int)]
-    for fn in (lib.grafs_embedding_bag, lib.grafs_ell_softmax,
-               lib.grafs_flash_f32, lib.grafs_flash_sm90,
-               lib.grafs_flash_sm90_attributes):
+    flash = (lib.grafs_flash_sm90, lib.grafs_flash_3xtf32)
+    attributes = (lib.grafs_flash_sm90_attributes,
+                  lib.grafs_flash_3xtf32_attributes)
+    for fn in flash:
+        fn.argtypes = [vp] * 4 + [i32] * 8 + [_F32, vp]
+    for fn in attributes:
+        fn.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.grafs_embedding_bag, lib.grafs_ell_softmax, *flash,
+               *attributes):
         fn.restype = i32
     return lib
 

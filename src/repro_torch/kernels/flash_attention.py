@@ -9,17 +9,19 @@ keys alike → [B, H, S, D] in q's dtype.  Any S and T; D in {16, 32, 64,
 
 Both kernels replace ``_flash_kernel``, and ``flash_attention`` picks one by
 dtype (a documented dispatch, not a fallback: each serves every call of
-its dtype):
+its dtype).  Both run their products on the tensor cores with ``wgmma``,
+Q once and K/V through a shared-memory ring loaded by TMA, and the online
+softmax in registers:
 
-- bfloat16 → ``csrc/flash_attention_sm90.cu`` (``flash_sm90_kernel``): TMA
-  loads of Q once and of K/V through a shared-memory ring, both products
-  as ``wgmma`` on the tensor cores with float32 accumulators, the online
-  softmax in registers, and P split into a bfloat16 high and low part so
-  that p·v keeps float32's accuracy, as the reference's float32 ``p @ v``
-  does;
-- float32 → ``csrc/flash_attention.cu`` (``flash_f32_kernel``): both
-  products in float32 on the CUDA cores (the tensor cores' TF32 would
-  fall short of the float32 reference).
+- bfloat16 → ``csrc/flash_attention_sm90.cu`` (``flash_sm90_kernel``): P
+  split into a bfloat16 high and low part so that p·v keeps float32's
+  accuracy, as the reference's float32 ``p @ v`` does;
+- float32 → ``csrc/flash_attention_3xtf32.cu`` (``flash_3xtf32_kernel``):
+  3xTF32.  Every operand x is split into hi = x rounded to TF32 and lo =
+  the TF32 rounding of x − hi, and each product is a_hi·b_hi + a_hi·b_lo +
+  a_lo·b_hi with float32 accumulators, which keeps float32's accuracy at
+  three TF32 products' cost (one TF32 product alone keeps 11 bits of each
+  operand).  V is split into a transposed Vᵀ, which TF32 ``wgmma`` needs.
 
 Each runs one block per (b·h, tile of queries), walks only the KV tiles
 its rows can see and reads the KV head as h // (H / Hkv), never repeated.
@@ -93,10 +95,11 @@ def _args(q, k, v, out, causal, chunk):
 
 
 def _launch_f32(q, k, v, causal, chunk):
+    """The float32 3xTF32 tensor-core kernel on checked card tensors."""
     from repro_torch.kernels import build
     out = torch.empty_like(q)
-    raise_on(build.fixed_library().grafs_flash_f32(
-        *_args(q, k, v, out, causal, chunk), stream(q)), "flash_f32")
+    raise_on(build.fixed_library().grafs_flash_3xtf32(
+        *_args(q, k, v, out, causal, chunk), stream(q)), "flash_3xtf32")
     return out
 
 
@@ -109,14 +112,16 @@ def _launch_sm90(q, k, v, causal, chunk):
     return out
 
 
-def sm90_attributes(d: int) -> dict:
-    """The compiled bfloat16 kernel's registers per thread, local (spill)
-    bytes per thread and shared-memory bytes per block at head dim ``d``
-    (``cudaFuncGetAttributes``; needs the card)."""
+def kernel_attributes(dtype, d: int) -> dict:
+    """The compiled kernel of ``dtype``'s route at head dim ``d``: registers
+    per thread, local (spill) bytes per thread and shared-memory bytes per
+    block (``cudaFuncGetAttributes``; needs the card)."""
     from repro_torch.kernels import build
+    lib = build.fixed_library()
+    fn = (lib.grafs_flash_sm90_attributes if dtype == torch.bfloat16
+          else lib.grafs_flash_3xtf32_attributes)
     attrs = (ctypes.c_int * 4)()
-    raise_on(build.fixed_library().grafs_flash_sm90_attributes(
-        d, attrs), "flash_sm90 attributes")
+    raise_on(fn(d, attrs), "flash attributes")
     return {"registers": attrs[0], "local_bytes": attrs[1],
             "static_smem_bytes": attrs[2], "dynamic_smem_bytes": attrs[3]}
 
@@ -135,6 +140,8 @@ def attention_mask(s: int, t: int, causal: bool, chunk: Optional[int],
 
 
 def _flash_plain(q, k, v, causal, chunk):
+    """The plain version: float32 arithmetic, or float64 for float64
+    inputs (the oracle the float32 kernel is held to on the card)."""
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -143,10 +150,11 @@ def _flash_plain(q, k, v, causal, chunk):
         return torch.zeros_like(q)
     mask = attention_mask(s, t, causal, chunk, q.device)
     out = torch.empty_like(q)
+    ct = torch.promote_types(q.dtype, torch.float32)
     for bi in range(b):
         for g in range(hkv):                 # the query heads of KV head g
-            qf = q[bi, g * rep:(g + 1) * rep].float()
-            kf, vf = k[bi, g].float(), v[bi, g].float()
+            qf = q[bi, g * rep:(g + 1) * rep].to(ct)
+            kf, vf = k[bi, g].to(ct), v[bi, g].to(ct)
             logits = torch.where(mask, qf @ kf.T * scale, _NEG)
             m = logits.amax(dim=-1, keepdim=True).clamp(min=_NEG)
             p = torch.where(mask, torch.exp(logits - m), 0.0)

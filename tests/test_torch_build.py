@@ -38,8 +38,9 @@ def test_units_include_their_headers():
         ["edge_level.cuh", "edge_sweep.cuh"]
     fixed = build.fixed_source()
     names = {f.name for f in build.included_files(fixed)}
-    assert {"embedding_bag.cu", "segment_softmax.cu", "flash_attention.cu",
-            "flash_attention_sm90.cu", "dtypes.cuh"} <= names
+    assert {"embedding_bag.cu", "segment_softmax.cu",
+            "flash_attention_3xtf32.cu", "flash_attention_sm90.cu",
+            "flash_sm90.cuh", "dtypes.cuh"} <= names
     assert build.source_key(rnd) != build.source_key(lvl)
 
 

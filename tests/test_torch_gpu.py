@@ -14,7 +14,9 @@ the element in float32 (whole matrix products against the kernel's online
 recurrence).  Both compute in float32 and round the result once, so in
 bfloat16 they are held to one bfloat16 step of the element (2^-7 of it)
 plus that float32 difference; the bfloat16 route's tensor cores take P as
-a high and a low bfloat16 part, which keeps it inside that difference.
+a high and a low bfloat16 part, which keeps it inside that difference, and
+the float32 route's take every operand as a high and a low TF32 part
+(3xTF32), which keeps it within the float32 limit.
 The cuda engine is held against the port's pull engine."""
 import numpy as np
 import pytest
@@ -420,7 +422,8 @@ _FLASH_ROUTE = {torch.float32: "flash_f32", torch.bfloat16: "flash_sm90"}
 def _flash_case(dev, dtype, seed, b, h, hkv, s, t, d, causal, chunk,
                 qscale=1.0):
     """One call against the plain version, on the route its dtype takes,
-    held to the smoke's limits (rtol, atol) = _FLASH_TOL[dtype]."""
+    held to the smoke's limits (rtol, atol) = _FLASH_TOL[dtype]; float32
+    against the plain version in float64."""
     rng = np.random.default_rng(seed)
     q = _rng_tensor(rng, (b, h, s, d), dev, dtype, qscale)
     k = _rng_tensor(rng, (b, hkv, t, d), dev, dtype)
@@ -431,10 +434,17 @@ def _flash_case(dev, dtype, seed, b, h, hkv, s, t, d, causal, chunk,
     route = _FLASH_ROUTE[dtype]
     assert TFA.LAUNCHES == {"flash": 1, "flash_sm90": 0, "flash_f32": 0,
                             route: 1}
-    want = TFA._flash_plain(q, k, v, causal, chunk)
+    if dtype == torch.float32:
+        # the function's value: the plain version in float64 (in float32
+        # its own products are 1.4 times the limit off it at qscale 8,
+        # D = 128, so no float32 kernel could be held to it there)
+        want = TFA._flash_plain(q.double(), k.double(), v.double(), causal,
+                                chunk)
+    else:
+        want = TFA._flash_plain(q, k, v, causal, chunk).float()
     rtol, atol = _FLASH_TOL[dtype]
     assert got.dtype == dtype
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+    torch.testing.assert_close(got.to(want.dtype), want, rtol=rtol,
                                atol=atol)
 
 
@@ -450,6 +460,7 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, h, hkv, s,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hkv,s,t,d,causal,chunk,qscale", [
     (2, 4, 2, 1, 80, 16, True, None, 1.0),         # one query row
     (1, 4, 4, 63, 80, 32, True, None, 1.0),        # ragged S and T
@@ -465,13 +476,14 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, h, hkv, s,
     (2, 4, 2, 256, 256, 128, True, None, 8.0),     # peaked softmax
     (1, 4, 4, 129, 129, 64, True, None, 8.0),
     (1, 6, 3, 200, 333, 16, True, 48, 8.0)])
-def test_flash_sm90_kernel_matches_plain_on_card(cuda_device, b, h, hkv, s,
-                                                 t, d, causal, chunk,
+def test_flash_sm90_kernel_matches_plain_on_card(cuda_device, dtype, b, h,
+                                                 hkv, s, t, d, causal, chunk,
                                                  qscale):
-    """The bfloat16 tensor-core route at every head dim, ragged S and T,
-    Hkv in {1, 2, H}, chunks that cut KV tiles, and peaked softmaxes."""
-    _flash_case(cuda_device, torch.bfloat16, s + 7 * t + d, b, h, hkv, s, t,
-                d, causal, chunk, qscale)
+    """Both tensor-core routes (bfloat16 and float32's 3xTF32) at every head
+    dim, ragged S and T, Hkv in {1, 2, H}, chunks that cut KV tiles, and
+    peaked softmaxes."""
+    _flash_case(cuda_device, dtype, s + 7 * t + d, b, h, hkv, s, t, d,
+                causal, chunk, qscale)
 
 
 @pytest.mark.gpu

@@ -12,7 +12,8 @@ Tolerances:
 - softmax: 1e-5 (float32 arithmetic in another summation order), 1e-2 for
   bfloat16 output (one bfloat16 step at 1.0 is 2⁻⁷);
 - embedding bag: 1e-5 for float32, 2e-2 for bfloat16;
-- flash attention: 2e-3 for float32, 2e-2 for bfloat16.
+- flash attention: 2e-3 for float32, 2e-2 for bfloat16; the mirrors of
+  the card kernels' arithmetic at the card's limits.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -372,6 +373,61 @@ def test_flash_split_p_matches_pallas_bf16(qscale, chunk):
     got = (acc / p.sum(-1, keepdim=True).clamp(min=1e-30)).to(torch.bfloat16)
     np.testing.assert_allclose(got.float().numpy(), want[0], rtol=2.0 ** -7,
                                atol=1e-4)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 stored mantissa bits, to nearest, ties away
+    from zero), as a bit mask on the float32 words: the card's
+    ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the float32 card kernel takes it: hi·lo and lo·hi, then
+    hi·hi, each product of TF32 values exact in float32."""
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+@pytest.mark.parametrize("qscale,chunk", [(1.0, None), (8.0, None),
+                                          (1.0, 48), (8.0, 48)])
+def test_flash_3xtf32_matches_pallas_f32(qscale, chunk):
+    """The float32 card kernel's arithmetic, mirrored in plain PyTorch:
+    both products in 3xTF32 (every operand a TF32 high part plus the TF32
+    rounding of the rest; the low parts' product dropped).  Held against
+    the Pallas kernel in float32 to the card's limit, 1e-5 + 1e-5 of the
+    element; a chunk of 48 cuts the kernel's 32-key tiles.
+
+    This checks the precision argument for 3xTF32 only: the mirror calls no
+    port code but ``attention_mask`` and follows neither the kernel's
+    online rescaling nor its exp2.  The kernel itself is held to the same
+    limit on the card by ``tests/test_torch_gpu.py::
+    test_flash_sm90_kernel_matches_plain_on_card``."""
+    from repro_torch.kernels import flash_attention as TFA
+    q, k, v = _qkv(1, 4, 2, 96, 64, 23)
+    q = q * qscale
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True, chunk=chunk, block_q=32,
+                              block_k=32))
+    qf = _t(q)[0]
+    kf, vf = (_t(x)[0].repeat_interleave(2, 0) for x in (k, v))
+    hi, lo = _split_tf32(qf)
+    assert not bool(((hi.view(torch.int32) | lo.view(torch.int32))
+                     & 0x1FFF).any())
+    assert bool(((hi + lo - qf).abs() <= 2.0 ** -22 * qf.abs()).all())
+    mask = TFA.attention_mask(96, 96, True, chunk)
+    logits = torch.where(mask, _mm_3xtf32(qf, kf.transpose(1, 2)) / 8.0,
+                         -1e30)
+    p = torch.where(mask, torch.exp(logits - logits.amax(-1, keepdim=True)),
+                    0.0)
+    got = _mm_3xtf32(p, vf) / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    np.testing.assert_allclose(got.numpy(), want[0], rtol=1e-5, atol=1e-5)
 
 
 def test_flash_attention_cross_lengths():
