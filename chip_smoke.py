@@ -54,12 +54,14 @@ libraries at once, into ``build/repro_torch/``), and then
    - ``edge_reduce.ell_level_reduce`` on the SCALE-16 in-layout (int
      ``n + 1``, float ``n + w``, a two-level lex with ``bests``, ``nonbot``
      mode) and on the uniform graph's (int ``n + 1``), bitwise against its
-     plain version;
+     plain version; each case line also gives the walk's grid, the most
+     non-empty tiles one row tile holds and the cell buffer's bytes;
    - ``ops.ell_softmax`` over both in-layouts with their masks, within
      1e-6;
    - ``ops.embedding_bag`` on one DLRM RM2 table (4,000,000 × 64,
      ``configs/dlrm_rm2.py``) for 65,536 bags of K = 1 and K = 8, sum, mean
-     and weighted, and a bfloat16 table, bitwise;
+     and weighted, and a bfloat16 table, bitwise; each case line names the
+     kernel's path (vector or scalar) and its columns per thread;
    - ``flash_attention.flash_attention`` at llama3.2-3B's attention shape
      (24 heads, 8 KV heads, d_head 128, ``configs/llama3_2_3b.py``) with
      S = T = 4096, causal and causal with chunk 1024, in bfloat16 (the
@@ -601,6 +603,7 @@ def main(argv) -> int:
         e = TS.blocked_ell_cached(g, direction="in")
         n_pad, width = e.nbrs.shape
         n_tiles = int((e.tile_nnz > 0).sum())
+        real_slots = int(e.tile_nnz.sum())
         rng = np.random.default_rng(77)
         active = torch.ones(n_pad, dtype=torch.int32, device=dev)
         ones = torch.ones(n_pad, dtype=torch.float32, device=dev)
@@ -618,22 +621,30 @@ def main(argv) -> int:
                   "nonbot": [s_int]}
         best0 = None
         for name in names:
-            op, ps, _dts, ids, mode = level_units[name]
+            op, ps, dts, ids, mode = level_units[name]
+            # the walk's grid, the most non-empty (8 × 128) tiles in one
+            # row tile and the cell buffer's bytes
+            walk = ER.level_walk(e, build.level_library(
+                ER.level_source(ps, dts, ids, op, mode)))
             st = states[name]
             bests = [best0] if name == "lex level 1" else []
             used = ps if mode == "value" else ps[:-1]
             reads = frozenset().union(*map(expr_vars, used))
-            # The least bytes, as the pull bound counts them: every tile's
-            # count (4 B); of each non-empty tile, each slot's mask (1 B),
-            # source index (4 B) and the weight and capacity where P reads
-            # them; the vectors read once (frontier, states, bests, the
-            # degrees P reads) and the output written once.
-            slot = 1 + 4 + 4 * ("w" in reads) + 4 * ("c" in reads)
+            # The least bytes this data needs: every tile's count (4 B); of
+            # each non-empty tile, each slot's mask (1 B); of each real slot
+            # (the kernel reads no padding slot's inputs) the source index
+            # (4 B) and the weight and capacity where P reads them; the
+            # vectors read once (frontier, states, bests, the degrees P
+            # reads) and the output written once.  Beside it the bytes as
+            # the pull bound counts them, every slot of a non-empty tile
+            # (the bound of the parent's kernel, which read them all).
+            per_real = 4 + 4 * ("w" in reads) + 4 * ("c" in reads)
             vec = 1 + len(st) + len(bests) + ("outdeg" in reads) + \
                 ("wdeg" in reads) + 1
-            nbytes = (e.tile_nnz.numel() * 4
-                      + n_tiles * e.block_v * e.block_e * slot
-                      + n_pad * 4 * vec)
+            fixed = e.tile_nnz.numel() * 4 + n_pad * 4 * vec
+            slots = n_tiles * e.block_v * e.block_e
+            nbytes = fixed + slots + real_slots * per_real
+            all_slots = fixed + slots * (1 + per_real)
             entry_case(
                 "level", f"{label} {name}",
                 lambda: ER.ell_level_reduce(e, op, ps, st, ids, active, ones,
@@ -643,7 +654,11 @@ def main(argv) -> int:
                                         e.capacity, e.mask, active, ones,
                                         ones, bests, mode, float(e.n)),
                 None, nbytes, reps=10, plain_reps=1,
-                detail={"tiles": n_tiles, "tiles_all": e.tile_nnz.numel()})
+                detail={"tiles": n_tiles, "tiles_all": e.tile_nnz.numel(),
+                        "real_slots": real_slots,
+                        "bytes_all_slots": all_slots,
+                        "bound_all_slots_ms":
+                            all_slots / HBM_BYTES_PER_S * 1e3, **walk})
             if name == "lex level 0":
                 best0 = ER.ell_level_reduce(e, op, ps, st, ids, active, ones)
 
@@ -979,7 +994,10 @@ def main(argv) -> int:
                        tab, idx, weights=w, mode=mode),
                    lambda tab=tab, idx=idx, w=w, mode=mode: EB._bag_plain(
                        tab, idx, w, mode),
-                   None, nbytes, library=lib, reps=20, plain_reps=3)
+                   None, nbytes, library=lib, reps=20, plain_reps=3,
+                   detail={"path": "vector" if EB.vector_width(tab) > 1
+                           else "scalar",
+                           "vector_width": EB.vector_width(tab)})
     del table, tables, bag_idx, bag_w
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(50)
@@ -1111,7 +1129,8 @@ def main(argv) -> int:
             "launches": phase_launches[kname],
             **{key: c[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
-                                       "library_ms", "cuda_core_bound_ms")
+                                       "library_ms", "cuda_core_bound_ms",
+                                       "bound_all_slots_ms")
                if key in c},
             "case": label})
     record["kernels"] = kernels

@@ -223,31 +223,39 @@ __device__ __forceinline__ void write_identities(Ptrs outs, long long cell) {
 // The walk over a tile list.  Tiles are dealt to blocks in turn, tile t
 // to block t mod gridDim.x, so that a run of live tiles (rmat's hub rows
 // fill whole row tiles) spreads over the grid instead of queueing on one
-// block.  At each step thread k of block b reads the word of tile
+// block.  At each step thread k of block b asks busy() of tile
 // (c + k)·gridDim.x + b, each warp's ballot goes to shared memory, and
-// every warp then runs visit(tile) for each tile of the step whose word is
-// set, in order, so all 32 lanes of every warp, and all warps of the
-// block, are in each visit (the row reductions shuffle over the whole
-// warp; the pull kernel's derived activity votes over the whole block).
-template <class Visit>
-__device__ __forceinline__ void walk_tiles(const int* __restrict__ tile_act,
-                                           long long n_tiles, Visit visit) {
+// every warp then runs visit(tile) for each tile of the step that is busy,
+// in order, so all 32 lanes of every warp, and all warps of the block, are
+// in each visit (the row reductions shuffle over the whole warp; the pull
+// kernel's derived activity votes over the whole block).
+template <class Busy, class Visit>
+__device__ __forceinline__ void walk_tiles_if(long long n_tiles, Busy busy,
+                                              Visit visit) {
   constexpr int WARPS = THREADS / 32;
-  __shared__ uint32_t busy[WARPS];
+  __shared__ uint32_t busy_w[WARPS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long grid = gridDim.x, b = blockIdx.x;
   for (long long c = 0; c * grid + b < n_tiles; c += THREADS) {
     const long long t = (c + threadIdx.x) * grid + b;
-    const bool act = t < n_tiles && tile_act[t] != 0;
+    const bool act = t < n_tiles && busy(t);
     const uint32_t m = __ballot_sync(0xffffffffu, act);
-    if (lane == 0) busy[warp] = m;
+    if (lane == 0) busy_w[warp] = m;
     __syncthreads();
 #pragma unroll 1
     for (int w = 0; w < WARPS; ++w)
-      for (uint32_t todo = busy[w]; todo; todo &= todo - 1)
+      for (uint32_t todo = busy_w[w]; todo; todo &= todo - 1)
         visit((c + w * 32 + (__ffs(todo) - 1)) * grid + b);
-    __syncthreads();                      // busy[] is rewritten next step
+    __syncthreads();                      // busy_w[] is rewritten next step
   }
+}
+
+// The walk over the tiles whose word in tile_act is set.
+template <class Visit>
+__device__ __forceinline__ void walk_tiles(const int* __restrict__ tile_act,
+                                           long long n_tiles, Visit visit) {
+  walk_tiles_if(
+      n_tiles, [&](long long t) { return tile_act[t] != 0; }, visit);
 }
 
 // The cells of the tiles whose word in tile_act is 0 get the identities

@@ -348,6 +348,21 @@ class BlockedELL:
         the sweeps walk when every tile that can run may run."""
         return (self.tile_nnz > 0).to(torch.int32)
 
+    @functools.cached_property
+    def row_tile_walk(self) -> tuple:
+        """The tile walk of the level sweep, built once per layout, at
+        (8 × 128) tiles whatever the layout's tiling: ``tiles`` int32
+        [n_pad/8, width/128], 1 where the tile lies in a non-empty layout
+        tile; ``counts`` int32 [n_pad/8], such tiles per 8-row tile; and
+        ``multi`` int32, the 8-row tiles that hold two or more of them (the
+        rows whose partials must be combined)."""
+        live = (self.tile_nnz > 0) \
+            .repeat_interleave(self.block_v // 8, 0) \
+            .repeat_interleave(self.block_e // 128, 1)
+        counts = live.sum(1, dtype=torch.int32)
+        multi = torch.nonzero(counts >= 2).flatten().to(torch.int32)
+        return live.to(torch.int32).contiguous(), counts, multi
+
     @property
     def srcs(self) -> torch.Tensor:
         """Pull-layout alias: the neighbour ids ARE the edge sources."""

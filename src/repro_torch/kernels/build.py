@@ -121,16 +121,18 @@ def _declare_round(lib):
 
 def _declare_level(lib):
     vp = _VP
-    lib.grafs_level.argtypes = [vp] * 8 + [vp, vp, vp, _I32, _I32, _I32, _I32,
-                                           _F32, vp]
-    lib.grafs_level.restype = _I32
+    lib.grafs_level.argtypes = [vp, vp, vp, _I32] + [vp] * 11 + [
+        _I32, _I32, _F32, vp]
+    lib.grafs_level_attributes.argtypes = [vp]
+    for fn in (lib.grafs_level, lib.grafs_level_attributes):
+        fn.restype = _I32
     return lib
 
 
 def _declare_fixed(lib):
     vp, i32, i64 = _VP, _I32, _I64
     lib.grafs_embedding_bag.argtypes = [vp, vp, vp, vp, i64, i32, i64, i32,
-                                        i32, i32, vp]
+                                        i32, i32, i32, vp]
     lib.grafs_ell_softmax.argtypes = [vp, vp, vp, i64, i64, i32, vp]
     flash = (lib.grafs_flash_sm90, lib.grafs_flash_3xtf32)
     attributes = (lib.grafs_flash_sm90_attributes,

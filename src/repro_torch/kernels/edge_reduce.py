@@ -31,11 +31,13 @@ source; the frontier's pull tile activity then needs no torch gather over
 the rectangle.
 
 ``ell_level_reduce`` (replaces ``_level_kernel``) is the per-level reference
-sweep outside the main path: one lex level per launch into a [n_pad]
-vector, its kernel generated per (P expressions, monoid, mode) by
-``synthesis.emit_cuda_level`` from ``csrc/edge_level.cuh``.  The kernel
-skips the tiles that the layout's ``tile_nnz`` counts empty; the plain
-version walks every tile, and the two agree bitwise all the same.
+sweep outside the main path: one lex level per call into a [n_pad]
+vector, its kernels generated per (P expressions, monoid, mode) by
+``synthesis.emit_cuda_level`` from ``csrc/edge_level.cuh``.  Its walk
+visits, on the same grid as the sweeps, the tiles that the layout's
+``tile_nnz`` counts non-empty and writes one partial per (row, slot tile);
+a combine kernel folds each row's partials in slot-tile order.  The plain
+version combines every tile, and the two agree bitwise all the same.
 
 Each wrapper launches its kernel for CUDA tensors (checking device, dtype,
 shape, contiguity and the launch status) and counts the launch in
@@ -593,8 +595,12 @@ def ell_level_reduce(ell, op: str, p_exprs, states, idents, active, outdeg,
 
     Returns the [n_pad] per-vertex reduction: the last state's dtype in
     ``value`` mode, int32 in ``nonbot`` mode.  The layout may be tiled at
-    any multiple of (8, 128); the kernel walks it in (8 × 128) tiles and
-    skips those whose layout tile ``ell.tile_nnz`` counts empty."""
+    any multiple of (8, 128).  On the card one call is two kernels: the
+    walk deals the (8 × 128) tiles over a grid sized to the card, skips
+    those whose layout tile ``ell.tile_nnz`` counts empty, and writes each
+    row's partial of each visited slot tile into an [n_pad, width / 128]
+    cell buffer where its row tile holds another such tile; the combine
+    folds those rows' cells in slot-tile order."""
     n_levels = len(states)
     if n_levels == 0 or len(p_exprs) != n_levels or \
             len(idents) != n_levels or len(bests) != n_levels - 1:
@@ -640,19 +646,47 @@ def ell_level_reduce(ell, op: str, p_exprs, states, idents, active, outdeg,
         _check(f"state[{k}]", st, dt, (n_pad,))
     for k, (b, dt) in enumerate(zip(bests, dtypes)):
         _check(f"bests[{k}]", b, dt, (n_pad,))
+    if n_pad // BLOCK_V * (width // BLOCK_E) >= 2 ** 31:
+        raise ValueError(f"layout {n_pad}×{width} has 2^31 or more "
+                         f"({BLOCK_V}, {BLOCK_E}) tiles")
     from repro_torch.kernels import build
     lib = build.level_library(level_source(p_exprs, dtypes, idents, kop,
                                             mode))
     out_dtype = dtypes[-1] if mode == "value" else torch.int32
+    tiles, counts, multi = ell.row_tile_walk
     out = torch.empty((n_pad,), dtype=out_dtype, device=srcs.device)
+    cells = torch.empty((n_pad, width // BLOCK_E), dtype=torch.int32,
+                        device=srcs.device)
     status = lib.grafs_level(
-        ell.tile_nnz.data_ptr(), srcs.data_ptr(), ell.weight.data_ptr(),
-        ell.capacity.data_ptr(), ell.mask.data_ptr(), active.data_ptr(),
-        outdeg.data_ptr(), wdeg.data_ptr(), _ptrs(states), _ptrs(bests),
-        out.data_ptr(), n_pad // BLOCK_V, width, bv, be, nv, _stream(srcs))
+        tiles.data_ptr(), counts.data_ptr(), multi.data_ptr(), multi.numel(),
+        srcs.data_ptr(), ell.weight.data_ptr(), ell.capacity.data_ptr(),
+        ell.mask.data_ptr(), active.data_ptr(), outdeg.data_ptr(),
+        wdeg.data_ptr(), _ptrs(states), _ptrs(bests), cells.data_ptr(),
+        out.data_ptr(), n_pad // BLOCK_V, width, nv, _stream(srcs))
     _raise_on(status, "level")
     LAUNCHES["level"] += 1
     return out
+
+
+def level_walk(ell, lib) -> dict:
+    """The level walk's shape on ``ell`` for the level library ``lib``
+    (needs the card): the walk kernel's registers per thread, its grid (the
+    card's resident blocks, fewer where the tiles need fewer steps), the
+    non-empty (8 × 128) tiles, the most of them in one row tile, the row
+    tiles the combine takes and the bytes of their cells (where ⊥ is the
+    monoid's identity)."""
+    attrs = (ctypes.c_int * 2)()
+    _raise_on(lib.grafs_level_attributes(attrs), "level attributes")
+    n_pad, width = ell.nbrs.shape
+    n_j = width // BLOCK_E
+    steps = -(-(n_pad // BLOCK_V * n_j) // (BLOCK_V * _LANES))
+    tiles, counts, multi = ell.row_tile_walk
+    return {"registers": attrs[0], "resident_blocks": attrs[1],
+            "grid": max(1, min(steps, attrs[1])),
+            "tiles_non_empty": int(tiles.sum()),
+            "max_tiles_per_row_tile": int(counts.max()),
+            "row_tiles_combined": multi.numel(),
+            "cell_bytes": multi.numel() * BLOCK_V * n_j * 4}
 
 
 def _level_plain(kop, p_exprs, states, idents, srcs, weight, capacity, mask,

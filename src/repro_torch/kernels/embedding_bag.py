@@ -5,11 +5,13 @@ The port of ``repro.kernels.embedding_bag``: ``table`` [V, D] float32 or
 bfloat16, ``idx`` [B, K] int32 row ids, optional ``weights`` [B, K]
 float32 → [B, D] per-bag sum or mean in the table's dtype.  The kernel
 (``csrc/embedding_bag.cu``, replacing ``_bag_kernel`` and
-``_bag_kernel_weighted``) runs one thread per (bag, column) and sums the K
-rows in slot order in float32; the plain version repeats that order, so
-the two agree bitwise on the card.  Indices follow JAX's ``table[idx]``:
-negative ones wrap once, then all are clamped into range.  Mean divides by
-K, with weights too.  Any B and D are accepted.
+``_bag_kernel_weighted``) runs its grid over bags; a thread owns
+``vector_width`` consecutive columns of one bag (16 bytes' worth where D
+allows it and the table is 16-byte aligned, else one), loads two rows
+ahead of its adds, and sums the K rows in slot order in float32; the plain version repeats that order, so the two agree bitwise on
+the card.  Indices follow JAX's ``table[idx]``: negative ones wrap once,
+then all are clamped into range.  Mean divides by K, with weights too.
+Any B and D and any base alignment are accepted.
 
 ``embedding_bag`` launches the kernel for CUDA tensors (checking device,
 dtype, shape and contiguity, and the launch status) and counts the launch
@@ -53,20 +55,30 @@ def embedding_bag(table, idx, weights: Optional[torch.Tensor] = None,
     if table.dtype not in _DTYPES:
         raise ValueError(f"table must be float32 or bfloat16, got "
                          f"{table.dtype}")
-    check("table", table, table.dtype)
-    check("idx", idx, torch.int32)
+    check("table", table, table.dtype, aligned=False)
+    check("idx", idx, torch.int32, aligned=False)
     if weights is not None:
-        check("weights", weights, torch.float32)
+        check("weights", weights, torch.float32, aligned=False)
     from repro_torch.kernels import build
     lib = build.fixed_library()
     out = torch.empty((b, d), dtype=table.dtype, device=table.device)
+    vec = vector_width(table) if out.data_ptr() % 16 == 0 else 1
     status = lib.grafs_embedding_bag(
         table.data_ptr(), idx.data_ptr(),
         None if weights is None else weights.data_ptr(), out.data_ptr(),
-        v, d, b, k, _DTYPES[table.dtype], _MODES[mode], stream(table))
+        v, d, b, k, _DTYPES[table.dtype], _MODES[mode], vec, stream(table))
     raise_on(status, "embedding_bag")
     LAUNCHES["bag"] += 1
     return out
+
+
+def vector_width(table) -> int:
+    """Columns per thread of the kernel on ``table``: 16 bytes' worth (4 in
+    float32, 8 in bfloat16) where D is a multiple of that and the table's
+    base is 16-byte aligned (the vector path), else 1 (the scalar path)."""
+    vec = 16 // table.element_size()
+    return vec if table.shape[1] % vec == 0 and table.data_ptr() % 16 == 0 \
+        else 1
 
 
 def _wrap_indices(idx, v: int):

@@ -7,9 +7,9 @@ import ctypes
 import torch
 
 
-def check(name: str, t, dtype, shape=None):
-    """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA tensor of
-    ``dtype`` (and ``shape``, when given)."""
+def check(name: str, t, dtype, shape=None, aligned: bool = True):
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape``, when given), 16-byte aligned unless ``aligned`` is False."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -19,7 +19,7 @@ def check(name: str, t, dtype, shape=None):
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 

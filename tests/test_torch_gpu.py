@@ -18,6 +18,8 @@ a high and a low bfloat16 part, which keeps it inside that difference, and
 the float32 route's take every operand as a high and a low TF32 part
 (3xTF32), which keeps it within the float32 limit.
 The cuda engine is held against the port's pull engine."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -315,60 +317,133 @@ def _rng_tensor(rng, shape, dev, dtype=torch.float32, scale=1.0):
                             .astype(np.float32)).to(dev, dtype)
 
 
-@pytest.mark.gpu
-def test_level_kernel_matches_plain_on_card(cuda_device):
-    """Bitwise, on layouts tiled at (8, 128), (16, 128) and (8, 256): the
-    kernel skips the tiles that the layout's tile counts call empty."""
-    dev = cuda_device
-    g = TS.rmat_graph(400, 3200, seed=11, device=dev)
-    e = TS.to_blocked_ell(g)
+def _level_inputs(dev, n_pad, n):
+    """Frontier, degrees, the lex cases' prior state and the cases (op, P
+    per level, states, identities, mode) of the level tests, for a layout
+    of ``n_pad`` rows."""
     rng = np.random.default_rng(5)
-    act = torch.from_numpy((rng.random(e.n_pad) < 0.7).astype(np.int32)) \
+    act = torch.from_numpy((rng.random(n_pad) < 0.7).astype(np.int32)) \
         .to(dev)
-    od = torch.from_numpy(rng.integers(1, 5, e.n_pad).astype(np.float32)) \
+    od = torch.from_numpy(rng.integers(1, 5, n_pad).astype(np.float32)) \
         .to(dev)
     inf = float("inf")
-    s_int = torch.from_numpy(rng.integers(0, 50, e.n_pad).astype(np.int32))
-    s_int[rng.random(e.n_pad) < 0.2] = 2 ** 30 - 1
-    s_max = torch.from_numpy(rng.integers(0, 9, e.n_pad).astype(np.float32))
-    s_max[rng.random(e.n_pad) < 0.2] = -inf
-    s_min = torch.from_numpy(rng.uniform(0, 9, e.n_pad).astype(np.float32))
-    s_min[rng.random(e.n_pad) < 0.2] = inf
-    s_int, s_max, s_min = s_int.to(dev), s_max.to(dev), s_min.to(dev)
+    s_int = torch.from_numpy(rng.integers(0, 50, n_pad).astype(np.int32))
+    s_int[rng.random(n_pad) < 0.2] = 2 ** 30 - 1
+    s_max = torch.from_numpy(rng.integers(0, 9, n_pad).astype(np.float32))
+    s_max[rng.random(n_pad) < 0.2] = -inf
+    s_min = torch.from_numpy(rng.uniform(0, 9, n_pad).astype(np.float32))
+    s_min[rng.random(n_pad) < 0.2] = inf
+    # +0.0 and -0.0 states (⊥ where the sum's ⊥ is ±0.0) beside negative and
+    # positive ones, whose n · 0 is -0.0 and +0.0
+    s_pm0 = torch.from_numpy(rng.choice(
+        np.array([0.0, -0.0, -1.5, -2.0, 3.0], np.float32), n_pad))
+    s_prod = torch.from_numpy(rng.uniform(0.5, 1.5, n_pad)
+                              .astype(np.float32))
+    s_int, s_max, s_min, s_pm0, s_prod = (
+        t.to(dev) for t in (s_int, s_max, s_min, s_pm0, s_prod))
     n1 = Bin("+", Var("n", INT), Lit(1, INT))
     nw = Bin("+", Var("n", FLT), Var("w", FLT))
     nc = Bin("min", Var("n", FLT), Var("c", FLT))
     pr = Bin("/", Var("n", FLT), Var("outdeg", FLT))
-    b0 = TER._level_plain("max", [nc], [s_max], [-inf], e.srcs, e.weight,
-                          e.capacity, e.mask, act, od, torch.ones_like(od),
-                          [], "value", float(g.n))
-    cases = [("min", [n1], [s_int], [2 ** 30 - 1], [], "value"),
-             ("min", [nw], [s_min], [inf], [], "value"),
-             ("sum", [pr], [s_min.clamp(max=5.0)], [0.0], [], "value"),
-             # a sum whose ⊥ is not 0 visits the empty tiles too
-             ("sum", [pr], [s_min.clamp(max=5.0)], [0.5], [], "value"),
-             ("min", [nc, nw], [s_max, s_min], [-inf, inf], [b0], "value"),
-             ("min", [n1, nw], [s_int, s_min], [2 ** 30 - 1, inf],
-              [b0.to(torch.int32)], "nonbot")]
+    n0 = Bin("*", Var("n", FLT), Lit(0.0, FLT))
+    return act, od, s_max, [
+        ("min", [n1], [s_int], [2 ** 30 - 1], "value"),
+        ("min", [nw], [s_min], [inf], "value"),
+        ("sum", [pr], [s_min.clamp(max=5.0)], [0.0], "value"),
+        # a sum whose ⊥ is not 0 and a product whose ⊥ is not 1 visit the
+        # empty tiles too
+        ("sum", [pr], [s_min.clamp(max=5.0)], [0.5], "value"),
+        ("prod", [pr], [s_prod], [2.0], "value"),
+        # float sums of ±0.0 from a +0.0 and from a -0.0 identity
+        ("sum", [n0], [s_pm0], [0.0], "value"),
+        ("sum", [n0], [s_pm0], [-0.0], "value"),
+        ("min", [nc, nw], [s_max, s_min], [-inf, inf], "value"),
+        ("min", [n1, nw], [s_int, s_min], [2 ** 30 - 1, inf], "nonbot")]
+
+
+def _check_level_cases(e, n, act, od, s_max, cases):
+    """Every case on layout ``e``, bitwise against the plain version; the
+    lex cases' prior level is the plain version's best of max min(n, c)."""
+    n_pad = e.n_pad
+    ones = torch.ones_like(od[:n_pad])
+    nc = Bin("min", Var("n", FLT), Var("c", FLT))
+    b0 = TER._level_plain("max", [nc], [s_max[:n_pad]], [-float("inf")],
+                          e.srcs, e.weight, e.capacity, e.mask, act[:n_pad],
+                          od[:n_pad], ones, [], "value", float(n))
+    for op, ps, states, idents, mode in cases:
+        states = [st[:n_pad] for st in states]
+        bests = [] if len(ps) == 1 else [
+            b0 if states[0].dtype == torch.float32 else b0.to(torch.int32)]
+        got = TER.ell_level_reduce(e, op, ps, states, idents, act[:n_pad],
+                                   od[:n_pad], bests=bests, mode=mode)
+        torch.cuda.synchronize()
+        want = TER._level_plain(
+            op if mode == "value" else "max", ps, states, idents, e.srcs,
+            e.weight, e.capacity, e.mask, act[:n_pad], od[:n_pad], ones,
+            bests, mode, float(n))
+        assert got.dtype == want.dtype
+        assert torch.equal(_bits(got), _bits(want)), (e.block_v, e.block_e,
+                                                      op, idents, mode)
+
+
+@pytest.mark.gpu
+def test_level_kernel_matches_plain_on_card(cuda_device):
+    """Bitwise, on layouts tiled at (8, 128), (16, 128) and (8, 256): the
+    walk skips the tiles that the layout's tile counts call empty."""
+    dev = cuda_device
+    g = TS.rmat_graph(400, 3200, seed=11, device=dev)
+    act, od, s_max, cases = _level_inputs(dev, TS.to_blocked_ell(g).n_pad,
+                                          g.n)
     TER.reset_launches()
     for bv, be in ((8, 128), (16, 128), (8, 256)):
         e = TS.to_blocked_ell(g, block_v=bv, block_e=be)
         assert bool((e.tile_nnz == 0).any())
-        n_pad = e.n_pad
-        for op, ps, states, idents, bests, mode in cases:
-            states = [st[:n_pad] for st in states]
-            bests = [b[:n_pad] for b in bests]
-            got = TER.ell_level_reduce(e, op, ps, states, idents,
-                                       act[:n_pad], od[:n_pad], bests=bests,
-                                       mode=mode)
-            torch.cuda.synchronize()
-            want = TER._level_plain(
-                op if mode == "value" else "max", ps, states, idents, e.srcs,
-                e.weight, e.capacity, e.mask, act[:n_pad], od[:n_pad],
-                torch.ones_like(od[:n_pad]), bests, mode, float(g.n))
-            assert got.dtype == want.dtype
-            assert torch.equal(_bits(got), _bits(want)), (bv, be, op, mode)
+        _check_level_cases(e, g.n, act, od, s_max, cases)
     assert TER.LAUNCHES["level"] == 3 * len(cases)
+
+
+def _hub_layout(dev):
+    """An rmat layout plus a hub whose row spans over 20 slot tiles, four
+    of them emptied (mask and tile counts) between non-empty ones."""
+    base = TS.rmat_graph(600, 3000, seed=12, device=dev)
+    src, dst, w, c = (np.asarray(a) for a in base.host_edges())
+    rng = np.random.default_rng(13)
+    hub = rng.integers(0, 600, 2750).astype(src.dtype)
+    g = TS.from_edges(600, np.concatenate([src, hub]),
+                      np.concatenate([dst, np.full(2750, 37, dst.dtype)]),
+                      np.concatenate([w, rng.uniform(0.5, 2.0, 2750)
+                                      .astype(np.float32)]),
+                      np.concatenate([c, rng.uniform(0.5, 2.0, 2750)
+                                      .astype(np.float32)]), device=dev)
+    e = TS.to_blocked_ell(g)
+    mask = e.mask.clone()
+    mask[37, 5 * 128:9 * 128] = False
+    n_i, n_j = e.n_pad // 8, e.width // 128
+    nnz = mask.view(n_i, 8, n_j, 128).sum((1, 3), dtype=torch.int32)
+    e = dataclasses.replace(e, mask=mask, tile_nnz=nnz.contiguous())
+    return g, e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["hub", "one slot tile"])
+def test_level_walk_matches_plain_on_card(cuda_device, layout):
+    """The walk where one row tile holds most of the work (a hub row of over
+    20 slot tiles, four of them empty between non-empty ones) and where every
+    row is one slot tile (n_j = 1, the uniform layouts); bitwise."""
+    dev = cuda_device
+    if layout == "hub":
+        g, e = _hub_layout(dev)
+        hub_tiles = e.tile_nnz[37 // 8] > 0
+        assert int(hub_tiles.nonzero().max()) >= 20
+        assert not bool(hub_tiles[5:9].any()) and bool(hub_tiles[9:].all())
+    else:
+        g = TS.uniform_graph(3000, 12000, seed=14, device=dev)
+        e = TS.to_blocked_ell(g)
+        assert e.width == 128
+    act, od, s_max, cases = _level_inputs(dev, e.n_pad, g.n)
+    TER.reset_launches()
+    _check_level_cases(e, g.n, act, od, s_max, cases)
+    assert TER.LAUNCHES["level"] == len(cases)
 
 
 @pytest.mark.gpu
@@ -413,6 +488,56 @@ def test_embedding_bag_kernel_matches_plain_on_card(cuda_device, dtype, k):
         assert got.dtype == dtype
         assert torch.equal(got, want), (mode, weights is None)
     assert TEB.LAUNCHES["bag"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [
+    (torch.float32, 1), (torch.float32, 3), (torch.float32, 4),
+    (torch.float32, 64), (torch.float32, 65), (torch.float32, 128),
+    (torch.bfloat16, 8), (torch.bfloat16, 12), (torch.bfloat16, 64)])
+def test_embedding_bag_paths_match_plain_on_card(cuda_device, dtype, d):
+    """The vector path (16 bytes a thread) where D allows it, the scalar
+    path elsewhere, at K in {1, 3, 8, 9} (chunks of 8 slots), bitwise."""
+    dev = cuda_device
+    rng = np.random.default_rng(d)
+    v, b = 500, 301
+    table = _rng_tensor(rng, (v, d), dev, dtype)
+    vec = 16 // table.element_size()
+    assert TEB.vector_width(table) == (vec if d % vec == 0 else 1)
+    TEB.reset_launches()
+    for k in (1, 3, 8, 9):
+        idx = torch.from_numpy(rng.integers(-v - 5, v + 5, (b, k))
+                               .astype(np.int32)).to(dev)
+        w = _rng_tensor(rng, (b, k), dev)
+        for mode, weights in (("sum", None), ("mean", None), ("sum", w)):
+            got = TEB.embedding_bag(table, idx, weights=weights, mode=mode)
+            torch.cuda.synchronize()
+            want = TEB._bag_plain(table, idx, weights, mode)
+            assert got.dtype == dtype
+            assert torch.equal(got, want), (k, mode, weights is None)
+    assert TEB.LAUNCHES["bag"] == 12
+
+
+@pytest.mark.gpu
+def test_embedding_bag_unaligned_tables_on_card(cuda_device):
+    """Table views whose base is not 16-byte aligned take the scalar path:
+    rows [1:] of a D = 3 table, and a D = 4 table 4 bytes into its
+    storage."""
+    dev = cuda_device
+    rng = np.random.default_rng(21)
+    flat = _rng_tensor(rng, (4 * 300 + 1,), dev)
+    for table in (_rng_tensor(rng, (300, 3), dev)[1:],
+                  flat[1:].view(300, 4)):
+        assert table.data_ptr() % 16 != 0
+        assert TEB.vector_width(table) == 1
+        idx = torch.from_numpy(rng.integers(0, table.shape[0], (77, 9))
+                               .astype(np.int32)).to(dev)
+        w = _rng_tensor(rng, (77, 9), dev)
+        for mode, weights in (("sum", None), ("mean", w)):
+            got = TEB.embedding_bag(table, idx, weights=weights, mode=mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got, TEB._bag_plain(table, idx, weights,
+                                                   mode))
 
 
 _FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}

@@ -30,6 +30,7 @@ from repro.kernels.flash_attention import flash_attention as j_flash
 from repro_torch.core import kernel_lang as TK
 from repro_torch.graph import structure as TS
 from repro_torch.kernels import edge_reduce as TER
+from repro_torch.kernels import embedding_bag as TEB
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels.flash_attention import flash_attention as t_flash
@@ -159,6 +160,49 @@ def test_level_nonbot_matches_pallas(n_levels):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _hub_level_graph(seed=17):
+    """A 128-vertex rmat graph plus a hub with 2,600 more in-edges: its row
+    spans 21 slot tiles while the other rows fill one.  Tiled at (64, 128)
+    so that the interpreter steps 2 × 21 tiles."""
+    base = JS.rmat_graph(128, 600, seed=seed)
+    src, dst, w, c = (np.asarray(a) for a in base.host_edges())
+    rng = np.random.default_rng(seed)
+    hub = rng.integers(0, 128, 2600).astype(src.dtype)
+    jg = JS.from_edges(128, np.concatenate([src, hub]),
+                       np.concatenate([dst, np.full(2600, 70, dst.dtype)]),
+                       np.concatenate([w, rng.uniform(0.5, 2, 2600)
+                                       .astype(np.float32)]),
+                       np.concatenate([c, rng.uniform(0.5, 2, 2600)
+                                       .astype(np.float32)]))
+    tg = TS.from_arrays(jg.n, *jg.host_edges(), device="cpu")
+    je = JS.to_blocked_ell(jg, block_v=64, block_e=128)
+    te = TS.to_blocked_ell(tg, block_v=64, block_e=128)
+    active = (rng.random(je.n_pad) < 0.8).astype(np.int32)
+    outdeg = rng.integers(1, 5, je.n_pad).astype(np.float32)
+    return je, te, active, outdeg, rng
+
+
+@pytest.mark.parametrize("op,dtype,p", [
+    ("min", np.float32, "n+w"), ("max", np.int32, "n+1"),
+    ("sum", np.float32, "n/outdeg")])
+def test_level_hub_row_matches_pallas(op, dtype, p):
+    """The layout the card's walk spreads over the grid: one row tile holds
+    a hub row of 21 slot tiles, the other row tiles one each."""
+    je, te, active, outdeg, rng = _hub_level_graph()
+    assert te.width // 128 >= 20
+    assert int((te.tile_nnz > 0).sum(1).max()) >= 20
+    assert int((te.tile_nnz > 0).sum(1).min()) == 1
+    ident = JSeg.identity(op, jnp.dtype(dtype))
+    ident = int(ident) if dtype == np.int32 else float(ident)
+    state = _state(rng, je.n_pad, dtype, ident)
+    want = j_level(je, op, [JK.compile_expr(_expr(JK, p))],
+                   [jnp.asarray(state)], [ident], jnp.asarray(active),
+                   jnp.asarray(outdeg), block_v=64, block_e=128)
+    got = TER.ell_level_reduce(te, op, [_expr(TK, p)], [_t(state)], [ident],
+                               _t(active), _t(outdeg))
+    _assert_level(got.numpy(), want, op, dtype)
+
+
 def test_level_matches_port_oracle_and_wdeg_default():
     """Against the port's own ``ref_edge_level``, with every source active
     and the default ``wdeg`` of ones read by P."""
@@ -273,6 +317,34 @@ def test_embedding_bag_bf16():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.parametrize("d,weighted", [(3, False), (65, True)])
+def test_embedding_bag_k9_odd_width_matches_pallas(d, weighted):
+    """K = 9 (a chunk of 8 slots, then one) at a width the card runs on
+    its scalar path."""
+    rng = np.random.default_rng(d)
+    table = rng.normal(size=(70, d)).astype(np.float32)
+    idx = rng.integers(0, 70, size=(128, 9)).astype(np.int32)
+    w = rng.normal(size=(128, 9)).astype(np.float32) if weighted else None
+    want = JO.embedding_bag(jnp.asarray(table), jnp.asarray(idx),
+                            weights=None if w is None else jnp.asarray(w),
+                            mode="mean")
+    got = TO.embedding_bag(_t(table), _t(idx),
+                           weights=None if w is None else _t(w), mode="mean")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_embedding_bag_vector_width_follows_width_and_alignment():
+    """The card kernel's path: 16 bytes a thread where D is a multiple of
+    that and the table's base is 16-byte aligned, one column elsewhere."""
+    f32, bf16 = torch.zeros((10, 64)), torch.zeros((10, 64)).bfloat16()
+    assert (TEB.vector_width(f32), TEB.vector_width(bf16)) == (4, 8)
+    assert TEB.vector_width(torch.zeros((10, 65))) == 1
+    assert TEB.vector_width(torch.zeros((10, 12)).bfloat16()) == 1
+    assert TEB.vector_width(torch.zeros((10, 3))[1:]) == 1
+    assert TEB.vector_width(torch.zeros(41)[1:].view(10, 4)) == 1
+    assert TEB.vector_width(torch.zeros((10, 4))[1:]) == 4
 
 
 def test_embedding_bag_any_batch_and_width():
