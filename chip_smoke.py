@@ -77,7 +77,36 @@ libraries at once, into ``build/repro_torch/``), and then
      three TF32 products at the TF32 rate, the CUDA-core bound beside it;
    each timed with CUDA events beside its plain version, its bound and,
    where one PyTorch call computes the same function
-   (``F.embedding_bag``, ``F.scaled_dot_product_attention``), that call.
+   (``F.embedding_bag``, ``F.scaled_dot_product_attention``), that call;
+5. drives the engines beside ``cuda`` and its fallback chain:
+   - ``engine="adaptive"`` (torch segment ops, the per-iteration
+     pull/push switch) on the SCALE-16 graph: BFS, SSSP, WSP, WP and CC on
+     the undirected closure bitwise equal to the ``cuda`` answers, PageRank
+     allclose (rtol 1e-5) with the same iteration count; on the uniform
+     graph, BFS bitwise;
+   - ``engine="dense"`` on ``rmat_graph(16384, 262144, seed=16)`` ([n, n]
+     float32 matrices of 1.07 GB each): BFS and SSSP bitwise, PageRank
+     allclose, against the ``pull`` engine, with the peak device memory;
+   - the handwritten kernel sets (paper Fig. 11) on the SCALE-16 graph with
+     ``engine="cuda"``: SSSP, BFS depth, WP and CC (undirected) equal to the
+     synthesized programs' ``cuda`` answers bit for bit wherever the value
+     is not ⊥ (⊥-ish values collapsed to one token, as the reference's test
+     does: the handwritten WP starts its source at +inf, the synthesized one
+     at 1e30), with equal iterations, edge work and push iterations; their
+     launches of the three sweep kernels are set to 0 before and read
+     after, and each must have launched;
+   - ``fallback=True``: an SSSP query whose ``ops.iterate_cuda`` is
+     replaced by one that raises a ``RuntimeError`` (a failure outside the
+     kernel layer), and one whose kernel layer raises an out-of-memory
+     error, end on ``adaptive`` with one fallback event and the ``cuda``
+     answer's bits; one whose ``iterate_cuda`` raises
+     ``KernelLaunchError``, and one whose round library lacks its entry
+     points (a fault inside the kernel layer), propagate a
+     ``KernelLaunchError`` with no retry; a clean one stays on ``cuda``
+     with no event.  Every other ``cuda`` query of the run
+     reports ``engine_used == "cuda"`` and no fallback.
+   Each query line gives iterations, pull iterations, edge work and the
+   wall time beside the ``cuda`` query's.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -209,7 +238,8 @@ def main(argv) -> int:
     # kernels' and the fixed kernels' (bag, softmax, both flash kernels).
     # ------------------------------------------------------------------
     progs = {name: TF.fuse(TU.ALL_SPECS[name]())
-             for name in ("BFS", "SSSP", "WSP", "CC")}
+             for name in ("BFS", "SSSP", "WSP", "CC", "WP")}
+    progs["BFS depth"] = TF.fuse(TU.bfs_depth(0))
 
     def program_round(prog):
         (rnd,) = [r for _n, r in prog.rounds if r.leaves]
@@ -225,6 +255,12 @@ def main(argv) -> int:
     rounds = {name: program_round(p) for name, p in progs.items()}
     rounds["PR"] = direct_round(pagerank_kernels(2))
     rounds["WPR"] = direct_round(weighted_pagerank_kernels(2))
+    # the handwritten kernel sets of phase 5 (SSSP's and WP's rounds are
+    # the synthesized ones', so they share their libraries)
+    handwritten = {name: TU.HANDWRITTEN[name]()
+                   for name in ("SSSP", "BFS", "WP", "CC")}
+    for name, dk in handwritten.items():
+        rounds[f"handwritten {name}"] = direct_round(dk)
     inf = float("inf")
     int_inf = 2 ** 30 - 1               # segment.INT_INF, the int32 min ⊥
     p_hop = Bin("+", Var("n", INT), Lit(1, INT))          # BFS-like
@@ -696,15 +732,24 @@ def main(argv) -> int:
     # ------------------------------------------------------------------
     # Phase 2: RM-XS counters and a small query against the path oracle.
     # ------------------------------------------------------------------
+    def on_cuda(r, label="query"):
+        """A cuda query's result, which must not have left the cuda
+        engine."""
+        if r.stats.engine_used != "cuda" or r.stats.fallbacks != ():
+            raise RuntimeError(f"{label}: ended on {r.stats.engine_used!r} "
+                               f"with fallbacks {r.stats.fallbacks}")
+        return r
+
     gx = TS.rmat_graph(400, 3200, seed=11, weighted=False, device=dev)
-    auto = TE.run_program(gx, progs["BFS"], engine="cuda").stats
-    pull = TE.run_program(gx, progs["BFS"], engine="cuda", model="pull").stats
+    auto = on_cuda(TE.run_program(gx, progs["BFS"], engine="cuda")).stats
+    pull = on_cuda(TE.run_program(gx, progs["BFS"], engine="cuda",
+                                  model="pull")).stats
     got = (auto.iterations, auto.push_iters, auto.edge_work, pull.edge_work,
            auto.resolve_work)
     if got != RMXS_BFS or auto.gather_work != RMXS_BFS[4]:
         raise RuntimeError(f"RM-XS BFS counters {got} != {RMXS_BFS}")
     gxw = TS.rmat_graph(400, 3200, seed=11, weighted=True, device=dev)
-    s = TE.run_program(gxw, progs["SSSP"], engine="cuda").stats
+    s = on_cuda(TE.run_program(gxw, progs["SSSP"], engine="cuda")).stats
     if (s.iterations, s.edge_work) != RMXS_WSSSP:
         raise RuntimeError(f"RM-XS weighted SSSP counters "
                            f"{(s.iterations, s.edge_work)} != {RMXS_WSSSP}")
@@ -713,7 +758,7 @@ def main(argv) -> int:
     from repro_torch.core.lang import paths_semantics
     gl = TS.line_graph(8, weighted=True, seed=2, device=dev)
     want = np.array(paths_semantics(TU.ALL_SPECS["SSSP"](), gl), np.float64)
-    have = TE.run_program(gl, progs["SSSP"], engine="cuda").value
+    have = on_cuda(TE.run_program(gl, progs["SSSP"], engine="cuda")).value
     if not np.array_equal(have.double().cpu().numpy(), want):
         raise RuntimeError(f"SSSP on a line graph {have} != oracle {want}")
     log("path oracle: SSSP on line_graph(8) equals the paths semantics")
@@ -784,6 +829,7 @@ def main(argv) -> int:
             r = fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
+        on_cuda(r, label)
         ka = prof.key_averages()
         dev_ev = [e for e in ka if e.device_type == DeviceType.CUDA]
         # the grafs:: ranges also appear on the device timeline, as spans
@@ -842,7 +888,9 @@ def main(argv) -> int:
                 raise RuntimeError(f"{label}: a torch gather ran in every "
                                    f"pull iteration: {per}")
 
-    def run(label, g, cuda_fn, pull_fn, exact):
+    def run(label, g, cuda_fn, pull_fn, exact, rows=None):
+        """A cuda query against the pull engine, its row added to ``rows``
+        (the main path's ``queries`` by default)."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = cuda_fn()
@@ -869,10 +917,12 @@ def main(argv) -> int:
                "match": ("bitwise" if exact else "allclose") if ok
                else "MISMATCH"}
         log("query " + json.dumps(row))
-        if not ok or st.engine_used != "cuda":
+        if not ok:
             raise RuntimeError(f"{label}: cuda engine disagrees with the "
                                "pull engine")
-        queries.append(row)
+        on_cuda(r, label)
+        (queries if rows is None else rows).append(row)
+        answers[label] = r
 
     # The main path's launch counts: set to 0 just before each graph's
     # queries, read just after, and summed.
@@ -881,6 +931,285 @@ def main(argv) -> int:
     def add_launches():
         for kname in MAIN_KERNELS:
             main_launches[kname] += ER.LAUNCHES[kname]
+
+    # ------------------------------------------------------------------
+    # Phase 5: the adaptive and dense engines, the handwritten kernel sets
+    # on the card and the fallback chain.  Its parts run while the graphs
+    # they need live: the cuda answers they are held to come from phase 3
+    # (``answers``).
+    # ------------------------------------------------------------------
+    answers = {}
+    phase5_rows = []
+    # phase 5's own cuda reference queries, run outside the main path's
+    # launch counts and so kept out of ``queries``
+    phase5_refs = []
+    hw_launches = dict.fromkeys(MAIN_KERNELS, 0)
+    from repro_torch.core import guard
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    def bot_mask(t):
+        """⊥-ish values, as the reference's tests collapse them: NaN or
+        |v| >= 1e8."""
+        v = t.double()
+        return v.isnan() | (v.abs() >= 1e8)
+
+    def warm_walls(fn, ref_fn):
+        """Second (warm) walls of a query and of its reference query, one
+        after the other: a first query also pays synthesis, the plan, the
+        caching allocator's growth and, on cuda, its sweep rounds."""
+        return {"warm_wall_ms": timed(fn)[1],
+                "reference_warm_wall_ms": timed(ref_fn)[1]}
+
+    def phase5_row(part, label, r, wall, want, match, **extra):
+        st = r.stats
+        row = {"part": part, "query": label, "engine": st.engine_used,
+               "n": int(r.value.shape[0]), "iterations": st.iterations,
+               "pull_iters": st.pull_iters, "push_iters": st.push_iters,
+               "edge_work": st.edge_work, "wall_ms": wall,
+               "reference": want["engine"],
+               "reference_iterations": want["iterations"],
+               "reference_wall_ms": want["wall_ms"], "match": match,
+               **extra}
+        log(f"phase 5 {part} " + json.dumps(row))
+        phase5_rows.append(row)
+
+    def cuda_answer(label):
+        r = answers[label]
+        row = [q for q in queries + phase5_refs if q["query"] == label][0]
+        return r, {"engine": "cuda", "iterations": r.stats.iterations,
+                   "wall_ms": row["wall_ms"]}
+
+    def adaptive_query(label, make, exact):
+        """``make(engine)`` runs the query; adaptive's answer against the
+        cuda one of phase 3: bitwise, or allclose (rtol 1e-5) with the same
+        iteration count."""
+        want, info = cuda_answer(label)
+        r, wall = timed(lambda: make("adaptive"))
+        if r.stats.engine_used != "adaptive" or r.stats.fallbacks != ():
+            raise RuntimeError(f"adaptive {label}: ended on "
+                               f"{r.stats.engine_used!r}")
+        if exact:
+            ok = torch.equal(bits(r.value), bits(want.value))
+        else:
+            ok = bool(torch.isfinite(r.value).all()) and torch.allclose(
+                r.value, want.value, rtol=1e-5, atol=1e-8) and \
+                r.stats.iterations == want.stats.iterations
+        phase5_row("adaptive", label, r, wall, info,
+                   ("bitwise" if exact else "allclose") if ok
+                   else "MISMATCH",
+                   **warm_walls(lambda: make("adaptive"),
+                                lambda: on_cuda(make("cuda"))))
+        if not ok:
+            raise RuntimeError(f"adaptive {label} disagrees with cuda")
+
+    def handwritten_query(name, g, label, synthesized):
+        """A handwritten kernel set on cuda against the synthesized
+        program's cuda answer (``synthesized()`` reruns that query for the
+        warm walls): equal bits wherever the value is not ⊥ and ⊥ in the
+        same places, equal counters."""
+        want, info = cuda_answer(label)
+        ER.reset_launches()
+        r, wall = timed(lambda: on_cuda(TE.run_direct(
+            g, handwritten[name], engine="cuda"), f"handwritten {name}"))
+        for kname in MAIN_KERNELS:
+            hw_launches[kname] += ER.LAUNCHES[kname]
+        warm = warm_walls(
+            lambda: on_cuda(TE.run_direct(g, handwritten[name],
+                                          engine="cuda")),
+            lambda: on_cuda(synthesized()))
+        bot = bot_mask(want.value)
+        same = torch.equal(bot_mask(r.value), bot) and torch.equal(
+            bits(r.value)[~bot], bits(want.value)[~bot])
+        counters = (r.stats.iterations, r.stats.edge_work,
+                    r.stats.push_iters)
+        want_counters = (want.stats.iterations, want.stats.edge_work,
+                         want.stats.push_iters)
+        ok = same and counters == want_counters
+        phase5_row("handwritten", f"handwritten {name} ({label})", r, wall,
+                   info, "bitwise up to ⊥" if ok else "MISMATCH",
+                   bits_differ=int((bits(r.value) != bits(want.value))
+                                   .sum()),
+                   counters=counters, reference_counters=want_counters,
+                   **warm)
+        if not ok:
+            raise RuntimeError(f"handwritten {name} disagrees with the "
+                               f"synthesized {label}")
+
+    def fallback_checks(g, label):
+        """SSSP under ``fallback=True``: a RuntimeError raised in place of
+        ``ops.iterate_cuda`` (outside the kernel layer) and an out-of-memory
+        error raised inside it degrade to adaptive with one event and the
+        cuda answer's bits; a KernelLaunchError, and a round library that
+        lacks its entry points, propagate at once; a clean query stays on
+        cuda."""
+        want = answers[label]
+        real = KO.iterate_cuda
+        calls = []
+
+        def query():
+            return TE.run_program(g, progs["SSSP"], engine="cuda",
+                                  fallback=True)
+
+        def raising(exc):
+            def fn(*a, **k):
+                calls.append(type(exc).__name__)
+                raise exc
+            return fn
+
+        def degrades(name, attr, exc):
+            """``KO.<attr>`` raises ``exc`` for one query, which must end on
+            adaptive with one event and the cuda answer's bits."""
+            calls.clear()
+            real_fn = getattr(KO, attr)
+            setattr(KO, attr, raising(exc))
+            try:
+                r, wall = timed(query)
+            finally:
+                setattr(KO, attr, real_fn)
+            event = ("cuda", "adaptive", f"{type(exc).__name__}: {exc}")
+            ok = (r.stats.engine_used == "adaptive"
+                  and r.stats.fallbacks == (event,)
+                  and torch.equal(bits(r.value), bits(want.value)))
+            phase5_row("fallback", f"{name} ({label})", r, wall,
+                       {"engine": "cuda",
+                        "iterations": want.stats.iterations,
+                        "wall_ms": None}, "bitwise" if ok else "MISMATCH",
+                       fallbacks=[list(ev) for ev in r.stats.fallbacks],
+                       exec_retries=r.stats.exec_retries,
+                       injected_calls=len(calls))
+            if not ok:
+                raise RuntimeError(f"fallback {name}: {r.stats.engine_used} "
+                                   f"{r.stats.fallbacks}")
+
+        degrades("injected RuntimeError", "iterate_cuda",
+                 RuntimeError("injected fault"))
+        degrades("injected OutOfMemoryError in the kernel layer",
+                 "sweep_round",
+                 torch.OutOfMemoryError("CUDA out of memory (injected)"))
+        calls.clear()
+        KO.iterate_cuda = raising(guard.KernelLaunchError(
+            "CUDA push kernel launch failed: cudaError 700 (injected)"))
+        try:
+            query()
+        except guard.KernelLaunchError as exc:
+            propagated = str(exc)
+        else:
+            raise RuntimeError("fallback: a KernelLaunchError was caught")
+        finally:
+            KO.iterate_cuda = real
+        if calls != ["KernelLaunchError"]:
+            raise RuntimeError(f"fallback: a KernelLaunchError was retried "
+                               f"({calls})")
+        log("phase 5 fallback " + json.dumps(
+            {"part": "fallback", "query": f"injected KernelLaunchError "
+             f"({label})", "propagated": propagated,
+             "iterate_cuda_calls": len(calls)}))
+        # a round library without its entry points: an AttributeError in
+        # the launch wrapper, raised by the engine as a KernelLaunchError
+        real_library = ER.SweepRound.library
+        ER.SweepRound.library = lambda self: object()
+        try:
+            query()
+        except guard.KernelLaunchError as exc:
+            if not isinstance(exc.__cause__, AttributeError):
+                raise RuntimeError(f"fallback: the missing entry point "
+                                   f"surfaced as {exc!r}") from exc
+            propagated = str(exc)
+        else:
+            raise RuntimeError("fallback: a kernel-layer fault was caught")
+        finally:
+            ER.SweepRound.library = real_library
+        log("phase 5 fallback " + json.dumps(
+            {"part": "fallback", "query": f"round library without its "
+             f"entry points ({label})", "propagated": propagated}))
+        r, wall = timed(query)
+        on_cuda(r, "clean fallback=True query")
+        if not torch.equal(bits(r.value), bits(want.value)):
+            raise RuntimeError("clean fallback=True query disagrees")
+        phase5_row("fallback", f"clean ({label})", r, wall,
+                   {"engine": "cuda", "iterations": want.stats.iterations,
+                    "wall_ms": None}, "bitwise", fallbacks=[],
+                   exec_retries=r.stats.exec_retries)
+
+    def phase5_rmat16(g):
+        n = g.n
+        for name in ("WP", "BFS depth"):
+            run(f"{name} rmat16", g,
+                lambda: TE.run_program(g, progs[name], engine="cuda"),
+                lambda: TE.run_program(g, progs[name], engine="pull"), True,
+                rows=phase5_refs)
+        for name in ("BFS", "SSSP", "WSP", "WP"):
+            adaptive_query(f"{name} rmat16",
+                           lambda eng: TE.run_program(g, progs[name],
+                                                      engine=eng), True)
+        adaptive_query("PageRank rmat16",
+                       lambda eng: TE.run_direct(
+                           g, pagerank_kernels(n, tol=1e-4 / n), engine=eng),
+                       False)
+        for name, prog in (("SSSP", "SSSP"), ("BFS", "BFS depth"),
+                           ("WP", "WP")):
+            handwritten_query(name, g, f"{prog} rmat16",
+                              lambda: TE.run_program(g, progs[prog],
+                                                     engine="cuda"))
+        fallback_checks(g, "SSSP rmat16")
+
+    def phase5_undirected(gu16):
+        label = "CC undirected(rmat16)"
+        adaptive_query(label, lambda eng: TE.run_program(
+            gu16, progs["CC"], engine=eng), True)
+        handwritten_query("CC", gu16, label, lambda: TE.run_program(
+            gu16, progs["CC"], engine="cuda"))
+        log(f"phase 5 handwritten launches: {json.dumps(hw_launches)}")
+        for kname, cnt in hw_launches.items():
+            if cnt <= 0:
+                raise RuntimeError(f"the {kname} kernel never launched for "
+                                   "the handwritten kernel sets")
+
+    def phase5_dense():
+        """The dense engine on rmat_graph(16384, 262144, seed=16): [n, n]
+        matrices of 268,435,456 entries each, against the pull engine."""
+        nd, ed = 16384, 262144
+        gd = TS.rmat_graph(nd, ed, seed=16, device=dev)
+        torch.cuda.synchronize()
+        # the run's peak so far, kept for the record's peak_mem_gb
+        record["peak_before_dense_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for label, make, exact in (
+                ("BFS", lambda eng: TE.run_program(gd, progs["BFS"],
+                                                   engine=eng), True),
+                ("SSSP", lambda eng: TE.run_program(gd, progs["SSSP"],
+                                                    engine=eng), True),
+                ("PageRank", lambda eng: TE.run_direct(
+                    gd, pagerank_kernels(nd, tol=1e-4 / nd), engine=eng),
+                 False)):
+            ref, ref_wall = timed(lambda: make("pull"))
+            r, wall = timed(lambda: make("dense"))
+            if exact:
+                ok = torch.equal(bits(r.value), bits(ref.value))
+            else:
+                ok = bool(torch.isfinite(r.value).all()) and torch.allclose(
+                    r.value, ref.value, rtol=1e-5, atol=1e-8)
+            phase5_row("dense", f"{label} rmat14", r, wall,
+                       {"engine": "pull",
+                        "iterations": ref.stats.iterations,
+                        "wall_ms": ref_wall},
+                       ("bitwise" if exact else "allclose") if ok
+                       else "MISMATCH",
+                       max_memory_allocated=torch.cuda.max_memory_allocated(),
+                       **warm_walls(lambda: make("dense"),
+                                    lambda: make("pull")))
+            if not ok or r.stats.engine_used != "dense":
+                raise RuntimeError(f"dense {label} disagrees with pull")
+        record["dense_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del gd
+        TE.clear_program_caches()
+        torch.cuda.empty_cache()
 
     setup("rmat16", g16)
     ER.reset_launches()
@@ -912,14 +1241,22 @@ def main(argv) -> int:
              lambda: TE.run_direct(g16, weighted_pagerank_kernels(
                  n, tol=1e-4 / n), engine="cuda", model="push"),
              no_gather_per="iteration")
+    add_launches()
+    t5 = time.perf_counter()
+    phase5_rmat16(g16)
+    phase5_s = time.perf_counter() - t5
     gu16 = TS.undirected(g16)
     TE.clear_graph_caches(g16)
     torch.cuda.empty_cache()
     setup("undirected rmat16", gu16)
+    ER.reset_launches()
     run("CC undirected(rmat16)", gu16,
         lambda: TE.run_program(gu16, progs["CC"], engine="cuda"),
         lambda: TE.run_program(gu16, progs["CC"], engine="pull"), True)
     add_launches()
+    t5 = time.perf_counter()
+    phase5_undirected(gu16)
+    phase5_s += time.perf_counter() - t5
     del gu16, g16
     TE.clear_program_caches()
     torch.cuda.empty_cache()
@@ -952,11 +1289,23 @@ def main(argv) -> int:
         if cnt <= 0:
             raise RuntimeError(f"the {kname} kernel never launched on the "
                                "main path")
+    t5 = time.perf_counter()
+    adaptive_query("BFS uniform21", lambda eng: TE.run_program(
+        gu, progs["BFS"], engine=eng), True)
+    phase5_s += time.perf_counter() - t5
     level_cases("uniform21", gu, ("int n+1",))
     softmax_case("uniform21 in-layout", gu)
     del gu
     TE.clear_program_caches()
     torch.cuda.empty_cache()
+    t5 = time.perf_counter()
+    phase5_dense()
+    phase5_s += time.perf_counter() - t5
+    log(f"phase 5: {phase5_s:.1f} s")
+    record["phase5"] = phase5_rows
+    record["phase5_references"] = phase5_refs
+    record["phase5_s"] = phase5_s
+    record["handwritten_launches"] = hw_launches
 
     # ------------------------------------------------------------------
     # Phase 4 (continued): the embedding bag and flash attention.
@@ -1090,7 +1439,8 @@ def main(argv) -> int:
     record["queries"] = queries
     record["launches"] = launches
     record["profiles"] = profiles
-    record["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["peak_mem_gb"] = max(record["peak_before_dense_bytes"],
+                                torch.cuda.max_memory_allocated()) / 1e9
 
     # the contract's kernel line: times of the weighted-PageRank round with
     # every source active (the push− main path's shapes)

@@ -4,11 +4,19 @@ The port's counterpart of ``repro.core.engine``: runs a ``FusedProgram``
 (``fusion.fuse``) or a ``DirectKernels`` set on a graph under one of
 
   pull | push   the reference engines of ``core.iterate`` (segment ops)
+  adaptive      Gemini's per-iteration pull/push switch on segment ops
+  dense         reductions over [n, n] edge matrices (small graphs)
   cuda          the direction-optimized blocked-ELL engine whose every
                 iteration launches the hand-written pull kernel, or the push
                 kernel followed by the sorted-resolution kernel
                 (``kernels.ops.iterate_cuda``; ``model`` forces "pull" /
                 "push", the default picks per iteration)
+
+``fallback=True`` degrades an infrastructure failure down
+``guard.FALLBACK_CHAIN`` (cuda → adaptive) after a bounded same-engine
+retry (``ft_config`` sets the budget), recording each step in
+``ExecStats.fallbacks``.  A kernel's build or launch fault, a CUDA runtime
+error and every guard verdict propagate instead (``guard.recoverable``).
 
 Entry points take ``device=None``, which means the CUDA card: without one
 they raise ``RuntimeError`` unless the caller passes ``device="cpu"``, and
@@ -48,15 +56,19 @@ _LATER = {
     "checkpoint_every": "checkpointed fixpoints (ROADMAP Queue 1, item 8)",
     "ckpt_dir": "checkpointed fixpoints (ROADMAP Queue 1, item 8)",
     "resume": "checkpointed fixpoints (ROADMAP Queue 1, item 8)",
-    "fallback": "the engine fallback chain (ROADMAP Queue 1, item 6)",
-    "ft_config": "the engine fallback chain (ROADMAP Queue 1, item 6)",
     "mesh": "the sharded engines (ROADMAP Queue 1, item 11)",
     "axes": "the sharded engines (ROADMAP Queue 1, item 11)",
     "shard_strategy": "the sharded engines (ROADMAP Queue 1, item 11)",
     "sources": "batched queries (ROADMAP Queue 1, item 7)",
 }
-_LATER_DEFAULTS = {"resume": False, "return_state": False, "fallback": False,
+_LATER_DEFAULTS = {"resume": False, "return_state": False,
                    "axes": ("data",)}
+
+# The same-engine retry budget of the fallback chain when no ``ft_config``
+# is given: the reference's constants, kept for parity, so they differ from
+# ``FTConfig``'s defaults (3 retries, 0.05 s) as the reference's do.
+_FALLBACK_RETRIES = 1
+_FALLBACK_BACKOFF_S = 0.01
 
 
 def _reject_later(kwargs: dict) -> None:
@@ -222,18 +234,60 @@ def _check_outcome(res, max_iter_eff, on_nonconverge):
 
 def _run(engine: str, plan: ExecutionPlan, g, comps, plans, max_iter, tol,
          sources):
-    """One iteration round on ``engine``."""
+    """One iteration round on ``engine``, which differs from ``plan.engine``
+    only while walking the fallback chain; the engine-dependent plan fields
+    then re-resolve (``degrade_plan``)."""
+    plan = _plan.degrade_plan(plan, engine)
     if engine in ("pull", "push"):
         idempotent = all(iterate.plan_idempotent(p) for p in plans)
         model = plan.model or (engine + ("+" if idempotent else "-"))
         return iterate.iterate_graph(g, comps, plans, model=model,
                                      max_iter=max_iter, tol=tol,
                                      sources=sources)
+    if engine == "adaptive":
+        # As in the reference, without the plan's dense_threshold: the
+        # engine switches at its default 0.05 whatever the hint.
+        return iterate.iterate_adaptive(g, comps, plans, max_iter=max_iter,
+                                        tol=tol, sources=sources)
+    if engine == "dense":
+        return iterate.iterate_dense(g, comps, plans, max_iter=max_iter,
+                                     tol=tol, sources=sources)
     if engine == "cuda":
         from repro_torch.kernels import ops as kops
         return kops.iterate_cuda(g, comps, plans, max_iter=max_iter, tol=tol,
                                  sources=sources, plan=plan)
     raise ValueError(f"unknown engine {engine}")
+
+
+def _dispatch_guarded(call, engine, fallback, ft_config):
+    """Run ``call(engine)``; on an infrastructure-shaped failure
+    (``guard.recoverable``) retry the SAME engine with a bounded budget,
+    then degrade one step down ``guard.FALLBACK_CHAIN`` and repeat.  Guard
+    verdicts, programming errors and kernel faults propagate unchanged.
+    Returns ``(result, engine_used, fallback_events, retries_used)``."""
+    if not fallback:
+        return call(engine), engine, (), 0
+    from repro_torch.runtime import ft as _ft
+    retries = _FALLBACK_RETRIES if ft_config is None else ft_config.max_retries
+    backoff = _FALLBACK_BACKOFF_S if ft_config is None else ft_config.backoff_s
+    eng = engine
+    events = []
+    retries_used = 0
+    while True:
+        try:
+            out, r = _ft.bounded_retry(lambda: call(eng), retries, backoff,
+                                       retryable=guard.recoverable)
+            return out, eng, tuple(events), retries_used + r
+        except Exception as exc:
+            retries_used += retries
+            if not guard.recoverable(exc):
+                raise
+            nxt = guard.FALLBACK_CHAIN.get(eng)
+            if nxt is None:
+                raise
+            events.append(guard.FallbackEvent(eng, nxt,
+                                              f"{type(exc).__name__}: {exc}"))
+            eng = nxt
 
 
 def _finish_round(g, round_: FusedRound, env: dict):
@@ -274,6 +328,7 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
                 switch_k="auto",
                 validate: bool = True,
                 on_nonconverge: str = "raise",
+                fallback: bool = False, ft_config=None,
                 divergence_sentinel: bool = True,
                 adaptive: bool = False,
                 plan: Optional[ExecutionPlan] = None,
@@ -291,14 +346,17 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
     Guarded execution: ``validate`` checks the graph's structural contract,
     the source's range and the termination preconditions before any kernel
     launches; ``on_nonconverge`` ("raise"/"warn"/"ignore") governs a round
-    that exhausts ``max_iter`` or trips the divergence sentinel."""
+    that exhausts ``max_iter`` or trips the divergence sentinel;
+    ``fallback=True`` degrades an infrastructure failure down the fallback
+    chain (cuda → adaptive) with bounded retry (``ft_config`` tunes the
+    budget), recording each event in the stats."""
     _reject_later(later)
     _prepare(g, device)
     if plan is None or explain:
         planned = plan_execution(
             g, prog, engine=engine, model=model, switch_k=switch_k,
             push_resolution=push_resolution, validate=validate,
-            on_nonconverge=on_nonconverge,
+            on_nonconverge=on_nonconverge, fallback=fallback,
             divergence_sentinel=divergence_sentinel, adaptive=adaptive,
             explain=explain)
         if explain:
@@ -315,8 +373,14 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
             synth, synth_ms = _synthesize_timed(round_)
             comps, plans = _round_runtime(round_, synth)
             _check_preconditions(chk, comps, plans)
-            res = _run(plan.engine, plan, g, comps, plans, max_iter, tol,
-                       _source_overrides(round_, source))
+            src_over = _source_overrides(round_, source)
+            res, eng_used, events, retries = _dispatch_guarded(
+                lambda eng: _run(eng, plan, g, comps, plans, max_iter, tol,
+                                 src_over),
+                plan.engine, plan.fallback, ft_config)
+            stats.engine_used = eng_used
+            stats.fallbacks += tuple(ev.as_tuple() for ev in events)
+            stats.exec_retries += retries
             _accumulate(stats, res, synth_ms)
             _check_outcome(res, max_iter_eff, plan.on_nonconverge)
             for leaf in round_.leaves:
@@ -337,6 +401,7 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
                switch_k="auto",
                validate: bool = True,
                on_nonconverge: str = "raise",
+               fallback: bool = False, ft_config=None,
                divergence_sentinel: bool = True,
                adaptive: bool = False,
                plan: Optional[ExecutionPlan] = None,
@@ -346,7 +411,8 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
     engine.  ``model`` pins the cuda engine's sweep direction; by default
     idempotent kernels switch per iteration and the rest run the pull−
     recompute.  The cuda engine needs ``dk.p_expr`` (the kernel is
-    generated from it)."""
+    generated from it).  ``fallback`` and ``ft_config`` act as in
+    ``run_program``."""
     from repro_torch.core.fusion import Prim
 
     _reject_later(later)
@@ -355,7 +421,7 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
         planned = plan_execution(
             g, dk, engine=engine, model=model, switch_k=switch_k,
             push_resolution=push_resolution, validate=validate,
-            on_nonconverge=on_nonconverge,
+            on_nonconverge=on_nonconverge, fallback=fallback,
             divergence_sentinel=divergence_sentinel, adaptive=adaptive,
             explain=explain)
         if explain:
@@ -378,9 +444,13 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
     plans = [Prim(dk.rop, 0)]
     _check_preconditions(chk, [comp], plans)
     src_over = None if source is None else {0: int(source)}
-    res = _run(plan.engine, plan, g, [comp], plans, dk.max_iter, dk.tol,
-               src_over)
-    stats = ExecStats(engine_used=plan.engine, plan=plan)
+    res, eng_used, events, retries = _dispatch_guarded(
+        lambda eng: _run(eng, plan, g, [comp], plans, dk.max_iter, dk.tol,
+                         src_over),
+        plan.engine, plan.fallback, ft_config)
+    stats = ExecStats(engine_used=eng_used,
+                      fallbacks=tuple(ev.as_tuple() for ev in events),
+                      exec_retries=retries, plan=plan)
     _accumulate(stats, res, 0.0)
     _check_outcome(res, max_iter_eff, plan.on_nonconverge)
     _plan.record_feedback(g, plan.kind, stats)

@@ -9,10 +9,15 @@ synchronous models
   push+  Def. 3: frontier-masked scatter from changed predecessors
   push−  Def. 4: scatter recompute from all predecessors
 
-over *reduction plans* (``Prim`` / ``Lex`` trees).  These engines use only
-segment/scatter primitives (``graph.segment``), none of the CUDA sweeps, so
-they are the port's own oracle for the ``cuda`` engine on the card.  The
-fixpoint is a host loop that reads the frontier once per iteration.
+over *reduction plans* (``Prim`` / ``Lex`` trees), and on the same plan
+algebra the ``adaptive`` engine (Gemini: per iteration, pull when the
+frontier is dense, push when it is sparse) and the ``dense`` engine
+(GridGraph analogue: reductions over ``[n, n]`` edge matrices, small graphs
+only).  These engines use only torch segment/scatter and dense reductions
+(``graph.segment``), none of the CUDA sweeps, so they are the port's own
+oracle for the ``cuda`` engine on the card and the floor of its fallback
+chain.  Each fixpoint is a host loop that reads the frontier once per
+iteration.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import dataclasses
 import inspect
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.fusion import FusedRound, Lex, Prim
@@ -309,6 +315,33 @@ def _finish(comps, state, active, k, work, div, resid) -> IterationResult:
         active_count=active_n, residual=float(resid))
 
 
+def _pull_plus(plans, comps_by_idx, state_d, evals, dst, eactive) -> dict:
+    """pull+ update: the frontier's edge values segment-reduced per
+    destination, merged with the previous state."""
+    n = state_d[plans[0].comp].shape[0]
+    masked = {i: torch.where(eactive, evals[i], _ident(comps_by_idx[i]))
+              for i in evals}
+    red = {}
+    for p in plans:
+        red.update(plan_segment_reduce(p, masked, dst, n, comps_by_idx))
+    new_d = {}
+    for p in plans:
+        new_d.update(plan_merge(p, state_d, red, comps_by_idx))
+    return new_d
+
+
+def _push_plus(plans, comps_by_idx, state_d, evals, dst, eactive) -> dict:
+    """push+ update: the frontier's edge values scattered onto the previous
+    state."""
+    n = state_d[plans[0].comp].shape[0]
+    keep = torch.ones(n, dtype=torch.bool, device=eactive.device)
+    new_d = {}
+    for p in plans:
+        new_d.update(plan_scatter_reduce(p, state_d, evals, dst, eactive,
+                                         keep, comps_by_idx))
+    return new_d
+
+
 # ---------------------------------------------------------------------------
 # pull / push engines.
 # ---------------------------------------------------------------------------
@@ -346,22 +379,8 @@ def iterate_graph(g: Graph, comps, plans, model: str = "pull+",
         if model in ("pull+", "push+"):
             eactive = active[src_l]
             work = work + eactive.sum()
-            new_d = {}
-            if model == "pull+":
-                masked = {i: torch.where(eactive, evals[i],
-                                         _ident(comps_by_idx[i]))
-                          for i in evals}
-                red = {}
-                for p in plans:
-                    red.update(plan_segment_reduce(p, masked, dst, n,
-                                                   comps_by_idx))
-                for p in plans:
-                    new_d.update(plan_merge(p, state_d, red, comps_by_idx))
-            else:
-                keep = torch.ones(n, dtype=torch.bool, device=dev)
-                for p in plans:
-                    new_d.update(plan_scatter_reduce(
-                        p, state_d, evals, dst, eactive, keep, comps_by_idx))
+            step = _pull_plus if model == "pull+" else _push_plus
+            new_d = step(plans, comps_by_idx, state_d, evals, dst, eactive)
         else:
             work = work + src.shape[0]
             red = {}
@@ -378,6 +397,162 @@ def iterate_graph(g: Graph, comps, plans, model: str = "pull+",
                         p, ident, evals, dst, all_e, keep, comps_by_idx))
             red = _apply_epilogue(comps, red)
             has_pred = _has_pred(comps, state_d, src, dst, n)
+            new_d = _recompute_merge(plans, comps_by_idx, state_d, red,
+                                     has_pred)
+        new = tuple(new_d[cr.idx] for cr in comps)
+        ch = _changed(comps, new, state, tol)
+        div = div | _divergence(comps, new)
+        resid = _residual(comps, new, state)
+        active = ch & ~div
+        state = new
+        k += 1
+    return _finish(comps, state, active, k, work, div, resid)
+
+
+# ---------------------------------------------------------------------------
+# adaptive engine (Gemini): per-iteration push/pull direction switch.
+# ---------------------------------------------------------------------------
+
+def iterate_adaptive(g: Graph, comps, plans, max_iter: Optional[int] = None,
+                     tol: float = 0.0, dense_threshold: float = 0.05,
+                     sources: Optional[dict] = None) -> IterationResult:
+    """Gemini's per-iteration direction switch: a dense frontier (active
+    fraction > ``dense_threshold``) takes the pull+ segment reduce over
+    ``g.by_dst``, a sparse one the push+ frontier-masked scatter over
+    ``g.by_src``.  Idempotent plans only; other rounds run pull−.
+
+    The fraction is the reference's float32 mean of the active mask, held
+    against the float32 threshold, so the switch flips on the same
+    iteration.  ``edge_work`` adds Σ out_deg over the frontier each
+    iteration, in int64 (the reference accumulates it in float32, exact
+    only below 2²⁴).  The result carries ``pull_iters``."""
+    n = g.n
+    max_iter = max_iter if max_iter is not None else 2 * n + 4
+    if not all(plan_idempotent(p) for p in plans):
+        return iterate_graph(g, comps, plans, model="pull-",
+                             max_iter=max_iter, tol=tol, sources=sources)
+    dev = g.device
+    comps_by_idx = {cr.idx: cr for cr in comps}
+    wdeg = structure_w_out_deg(g)
+    sides = {}
+    for pull, eo, step in ((True, g.by_dst, _pull_plus),
+                           (False, g.by_src, _push_plus)):
+        env = _edge_env(eo.src, eo.dst, eo.weight, eo.capacity, g.out_deg,
+                        n, wdeg=wdeg)
+        sides[pull] = (eo, env, step)
+    out_deg = g.out_deg.to(torch.int64)
+    threshold = np.float32(dense_threshold)
+
+    state = _init_state(comps, n, sources, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    k = pulls = 0
+    work = torch.zeros((), dtype=torch.int64, device=dev)
+    div = torch.zeros((), dtype=torch.bool, device=dev)
+    resid = torch.zeros((), dtype=torch.float32, device=dev)
+    while k < max_iter:
+        n_act = int(active.sum())
+        if n_act == 0:
+            break
+        use_pull = bool(np.float32(n_act) / np.float32(n) > threshold)
+        eo, env, step = sides[use_pull]
+        state_d = {cr.idx: state[i] for i, cr in enumerate(comps)}
+        evals = _propagate(comps, state_d, eo.src, env)
+        new_d = step(plans, comps_by_idx, state_d, evals, eo.dst,
+                     active[eo.src.long()])
+        work = work + (active * out_deg).sum()
+        new = tuple(new_d[cr.idx] for cr in comps)
+        ch = _changed(comps, new, state, tol)
+        div = div | _divergence(comps, new)
+        resid = _residual(comps, new, state)
+        active = ch & ~div
+        state = new
+        k += 1
+        pulls += use_pull
+    res = _finish(comps, state, active, k, work, div, resid)
+    res.pull_iters = pulls
+    return res
+
+
+# ---------------------------------------------------------------------------
+# dense engine (GridGraph analogue): reductions over [n, n] edge matrices.
+# ---------------------------------------------------------------------------
+
+# or/and reduce as max/min, as in the reference
+_DENSE_RED = {"min": torch.amin, "max": torch.amax, "sum": torch.sum,
+              "prod": torch.prod, "or": torch.amax, "and": torch.amin}
+
+
+def _dense_reduce(plan, mats: dict, comps_by_idx) -> dict:
+    """Column reduction of the per-edge value matrices (pull side), the
+    secondaries of a lex plan over the primary's tied edges."""
+    c = plan.comp
+    prim = _DENSE_RED[plan.op](mats[c], dim=0).to(mats[c].dtype)
+    if isinstance(plan, Prim):
+        return {c: prim}
+    tie = mats[c] == prim[None, :]
+    masked = dict(mats)
+    for j in _plan_comps(plan.secondary):
+        masked[j] = torch.where(tie, mats[j], _ident(comps_by_idx[j]))
+    return {c: prim, **_dense_reduce(plan.secondary, masked, comps_by_idx)}
+
+
+def iterate_dense(g: Graph, comps, plans, max_iter: Optional[int] = None,
+                  tol: float = 0.0,
+                  sources: Optional[dict] = None) -> IterationResult:
+    """Reference engine on dense ``[n, n]`` adjacency, weight and capacity
+    matrices built on the graph's device (small graphs only: each matrix
+    holds n² entries).  The per-vertex inputs of P (source and destination
+    ids, degrees) are expanded views, never copies; non-idempotent rounds
+    take the recompute merge with a dense has-pred."""
+    n = g.n
+    dev = g.device
+    max_iter = max_iter if max_iter is not None else 2 * n + 4
+    eo = g.by_src
+    src_l, dst_l = eo.src.long(), eo.dst.long()
+    adj = torch.zeros((n, n), dtype=torch.bool, device=dev)
+    wm = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    cm = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    adj[src_l, dst_l] = True
+    wm[src_l, dst_l] = eo.weight
+    cm[src_l, dst_l] = eo.capacity
+    comps_by_idx = {cr.idx: cr for cr in comps}
+    idempotent = all(plan_idempotent(p) for p in plans)
+    vs = torch.arange(n, dtype=torch.int32, device=dev)
+    env = {"w": wm, "c": cm,
+           "esrc": vs[:, None].expand(n, n),
+           "edst": vs[None, :].expand(n, n),
+           "outdeg": g.out_deg.clamp(min=1).to(torch.float32)[:, None]
+           .expand(n, n),
+           "wdeg": structure_w_out_deg(g)[:, None].expand(n, n),
+           "nv": torch.tensor(float(n), dtype=torch.float32, device=dev)}
+
+    state = _init_state(comps, n, sources, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    k = work = 0
+    div = torch.zeros((), dtype=torch.bool, device=dev)
+    resid = torch.zeros((), dtype=torch.float32, device=dev)
+    while k < max_iter and bool(active.any()):
+        state_d = {cr.idx: state[i] for i, cr in enumerate(comps)}
+        work += g.num_edges
+        mats = {}
+        for cr in comps:
+            s = state_d[cr.idx]
+            nmat = s[:, None].expand(n, n)
+            p = cast_like(cr.p_fn({"n": nmat, **env}), cr.dtype, nmat)
+            live = adj & (s != _ident(cr))[:, None]
+            mats[cr.idx] = torch.where(live, p, _ident(cr))
+        red = {}
+        for pl in plans:
+            red.update(_dense_reduce(pl, mats, comps_by_idx))
+        del mats
+        red = _apply_epilogue(comps, red)
+        if idempotent:
+            new_d = {}
+            for pl in plans:
+                new_d.update(plan_merge(pl, state_d, red, comps_by_idx))
+        else:
+            has_pred = {cr.idx: (adj & (state_d[cr.idx] != _ident(cr))
+                                 [:, None]).any(dim=0) for cr in comps}
             new_d = _recompute_merge(plans, comps_by_idx, state_d, red,
                                      has_pred)
         new = tuple(new_d[cr.idx] for cr in comps)

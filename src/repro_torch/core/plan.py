@@ -2,17 +2,19 @@
 
 The port's counterpart of ``repro.core.plan``: every execution knob —
 engine, sweep direction, the Gemini ``switch_k``, push resolution and the
-guarded-execution policy — is resolved in ONE place, ``plan_execution``,
-from cached per-graph statistics, with caller kwargs acting as hints that
-are normalized exactly once.  The resolved ``ExecutionPlan`` is frozen; the
-engine entry points lower through it and ``ops.iterate_cuda`` asserts its
-fields.  Default plans reproduce the documented heuristics (Gemini
+guarded-execution policy, fallback included — is resolved in ONE place,
+``plan_execution``, from cached per-graph statistics, with caller kwargs
+acting as hints that are normalized exactly once.  The resolved
+``ExecutionPlan`` is frozen; the engine entry points lower through it and
+``ops.iterate_cuda`` asserts its fields.  Default plans reproduce the documented heuristics (Gemini
 ``SWITCH_K``, ``"sorted"`` resolution, ``"auto"`` direction).
 
-Engines: ``pull`` and ``push`` (the reference engines of ``core.iterate``)
-and ``cuda`` (the direction-optimized blocked-ELL engine whose sweeps are
-the hand-written CUDA kernels — the reference's ``pallas``).  The sharded
-engines, batching and mutation-aware planning belong to later slices.
+Engines: ``pull``, ``push``, ``adaptive`` and ``dense`` (the reference
+engines of ``core.iterate``) and ``cuda`` (the direction-optimized
+blocked-ELL engine whose sweeps are the hand-written CUDA kernels — the
+reference's ``pallas``).  ``degrade_plan`` gives the plan one step of the
+guard fallback chain runs under.  The sharded engines, batching and
+mutation-aware planning belong to later slices.
 
 A recorded-stats feedback cache closes the loop: each executed query
 records its push/pull split and resolve work per (graph, query kind);
@@ -47,7 +49,7 @@ ADAPT_SPAN = 4.0
 ADAPT_PUSH_HI = 0.75
 ADAPT_PUSH_LO = 0.25
 
-ENGINES = ("pull", "push", "cuda")
+ENGINES = ("pull", "push", "adaptive", "dense", "cuda")
 
 
 def _normalize_switch_k(switch_k, dense_threshold=DENSE_FRONTIER):
@@ -124,6 +126,7 @@ class ExecutionPlan:
     resolution_hint: Optional[str] = None
     validate: bool = True
     on_nonconverge: str = "raise"
+    fallback: bool = False
     divergence_sentinel: bool = True
     adaptive: bool = False
     kind: tuple = ()
@@ -291,6 +294,7 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
                    push_resolution: Optional[str] = None,
                    validate: bool = True,
                    on_nonconverge: str = "raise",
+                   fallback: bool = False,
                    divergence_sentinel: bool = True,
                    adaptive: bool = False,
                    default_engine: str = "pull",
@@ -310,8 +314,8 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
     fb = feedback_for(g, kind) if adaptive else None
     fb_epoch = fb.epoch if fb is not None else 0
     hints_key = (engine, model, switch_k, dense_threshold, push_resolution,
-                 validate, on_nonconverge, divergence_sentinel, adaptive,
-                 default_engine)
+                 validate, on_nonconverge, fallback, divergence_sentinel,
+                 adaptive, default_engine)
     cache_key = (id(g), kind, hints_key, fb_epoch)
     if not explain:
         hit = _PLAN_CACHE.get(cache_key)
@@ -381,8 +385,8 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
         switch_k=k_norm, dense_threshold=dt,
         push_resolution=res, resolution_hint=push_resolution,
         validate=validate, on_nonconverge=on_nonconverge,
-        divergence_sentinel=divergence_sentinel, adaptive=adaptive,
-        kind=kind)
+        fallback=fallback, divergence_sentinel=divergence_sentinel,
+        adaptive=adaptive, kind=kind)
     if explain:
         return PlanExplanation(
             plan=plan, stats=stats,
@@ -391,3 +395,15 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
     _lru_put(_PLAN_CACHE, _PLAN_CACHE_MAX, cache_key, (weakref.ref(g), plan))
     weakref.finalize(g, _PLAN_CACHE.pop, cache_key, None)
     return plan
+
+
+def degrade_plan(plan: ExecutionPlan, engine: str) -> ExecutionPlan:
+    """The plan a guard-fallback step executes under: same normalized knobs,
+    target engine, with the resolution re-resolved from the raw hint (an
+    explicit caller hint survives the hop; a hintless plan lands on the
+    documented dst-sorted default)."""
+    if engine == plan.engine:
+        return plan
+    return dataclasses.replace(
+        plan, engine=engine,
+        push_resolution=_check_resolution(plan.resolution_hint))

@@ -6,8 +6,9 @@ Each function returns a spec AST; run it with
     prog = fusion.fuse(spec)
     result = engine.run_program(graph, prog, engine="pull")
 
-The ``handwritten_*`` kernel baselines of the reference belong to a later
-slice of the port.
+``handwritten_*`` variants at the bottom mirror the frameworks' reference
+implementations (hand-coded kernel functions) for the synthesized-vs-
+handwritten experiments (paper Fig. 11 / Table 1).
 """
 from __future__ import annotations
 
@@ -138,4 +139,78 @@ ALL_SPECS = {
     "RADIUS": lambda: radius(0, 1), "DRR": lambda: drr(0, 1),
     "DS": lambda: ds(0, 3.0), "RDS": lambda: rds(0, 1),
     "REACH": lambda: reach(0), "NREACH": lambda: n_reachable(0),
+}
+
+
+# ---------------------------------------------------------------------------
+# Handwritten kernel baselines (paper Fig. 11 / Table 1): the reference
+# vertex programs shipped with the frameworks, written directly against the
+# iteration engines — bypassing fusion and synthesis.
+# ---------------------------------------------------------------------------
+
+import torch  # noqa: E402
+
+from repro_torch.core.kernel_lang import FLT, INT, Bin, Lit, Var  # noqa: E402
+from repro_torch.core.synthesis import (DirectKernels,  # noqa: E402
+                                        pagerank_kernels,
+                                        weighted_pagerank_kernels)
+from repro_torch.graph.segment import identity  # noqa: E402
+
+
+# The init kernels are SOURCE-GENERIC (``init_fn(v, s)`` + a ``source``
+# default): the engines pass the query source as runtime data.  The engine's
+# ⊥-mask keeps every vertex but s at the reduction identity, exactly like
+# the synthesized path.  Each set carries its P as an ``Expr`` (``p_expr``),
+# from which the cuda engine generates its sweep kernels.
+
+def handwritten_sssp(s: int) -> DirectKernels:
+    return DirectKernels(
+        name="sssp", rop="min", dtype="float",
+        p_fn=lambda env: env["n"] + env["w"],
+        init_fn=lambda v, s: torch.where(v == s, 0.0, float("inf")),
+        source=s, p_expr=Bin("+", Var("n", FLT), Var("w", FLT)))
+
+
+def handwritten_bfs_depth(s: int) -> DirectKernels:
+    bot = identity("min", torch.int32).item()
+    return DirectKernels(
+        name="bfs", rop="min", dtype="int",
+        p_fn=lambda env: env["n"] + 1,
+        init_fn=lambda v, s: torch.where(v == s, 0, bot),
+        source=s, p_expr=Bin("+", Var("n", INT), Lit(1, INT)))
+
+
+def handwritten_cc() -> DirectKernels:
+    return DirectKernels(
+        name="cc", rop="min", dtype="int",
+        p_fn=lambda env: env["n"],
+        init_fn=lambda v: v,
+        p_expr=Var("n", INT))
+
+
+def handwritten_wp(s: int) -> DirectKernels:
+    inf = float("inf")
+    return DirectKernels(
+        name="wp", rop="max", dtype="float",
+        p_fn=lambda env: torch.minimum(env["n"], env["c"]),
+        init_fn=lambda v, s: torch.where(v == s, inf, -inf),
+        source=s, p_expr=Bin("min", Var("n", FLT), Var("c", FLT)))
+
+
+def handwritten_pagerank(n: int, gamma: float = 0.85) -> DirectKernels:
+    return pagerank_kernels(n, gamma)
+
+
+def handwritten_weighted_pagerank(n: int,
+                                  gamma: float = 0.85) -> DirectKernels:
+    """Edge-weight-proportional PageRank (P = n·w/wdeg(src)); see
+    synthesis.weighted_pagerank_kernels."""
+    return weighted_pagerank_kernels(n, gamma)
+
+
+HANDWRITTEN = {
+    "SSSP": lambda: handwritten_sssp(0),
+    "BFS": lambda: handwritten_bfs_depth(0),
+    "CC": handwritten_cc,
+    "WP": lambda: handwritten_wp(0),
 }

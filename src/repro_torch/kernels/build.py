@@ -35,6 +35,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from repro_torch.core.guard import KernelBuildError
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
@@ -64,8 +66,8 @@ def nvcc_path() -> str:
     for c in cands:
         if c.is_file():
             return str(c)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on "
-                       "first use and need the CUDA toolkit")
+    raise KernelBuildError("nvcc not found: the CUDA kernels are built on "
+                           "first use and need the CUDA toolkit")
 
 
 def included_files(source: str) -> list:
@@ -180,8 +182,8 @@ def _finish(key: str, started) -> None:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building "
-                           f"{so.name}:\n{out}")
+        raise KernelBuildError(f"nvcc failed (exit {proc.returncode}) "
+                               f"building {so.name}:\n{out}")
     os.replace(tmp, so)                    # atomic: readers never see half
     BUILD_SECONDS[key] = time.perf_counter() - t0
 
@@ -206,13 +208,18 @@ def build_all(units) -> list:
     for k, st in started.items():
         try:
             _finish(k, st)
-        except RuntimeError as exc:
+        except KernelBuildError as exc:
             errors.append(str(exc))
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelBuildError("\n".join(errors))
     for fam, k, src in keyed:
         if k not in _LIBS:
-            _LIBS[k] = _DECLARE[fam](ctypes.CDLL(str(_so_path(fam, k))))
+            # a library that will not load, or lacks an entry point
+            try:
+                _LIBS[k] = _DECLARE[fam](ctypes.CDLL(str(_so_path(fam, k))))
+            except (OSError, AttributeError) as exc:
+                raise KernelBuildError(f"loading {_so_path(fam, k).name} "
+                                       f"failed: {exc}") from exc
         _BY_UNIT[(fam, src)] = _LIBS[k]
     return [_LIBS[k] for _fam, k, _src in keyed]
 

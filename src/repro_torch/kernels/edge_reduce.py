@@ -60,6 +60,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.guard import KernelBuildError
 from repro_torch.core.iterate import cast_like
 from repro_torch.graph import segment
 from repro_torch.kernels.launch import check as _check
@@ -124,14 +125,14 @@ class SweepRound:
     def source(self) -> str:
         from repro_torch.core.synthesis import emit_cuda_round
         if self.p_exprs is None or any(e is None for e in self.p_exprs):
-            raise RuntimeError(
+            raise KernelBuildError(
                 "this round has no P expression for every component, so no "
                 "CUDA kernel can be generated for it")
         if self.n_levels + len(self.comps_order) > _MAX_PTRS:
-            raise RuntimeError(f"round too wide for the sweep kernels: "
-                               f"{self.n_levels} levels + "
-                               f"{len(self.comps_order)} components > "
-                               f"{_MAX_PTRS} outputs")
+            raise KernelBuildError(f"round too wide for the sweep kernels: "
+                                   f"{self.n_levels} levels + "
+                                   f"{len(self.comps_order)} components > "
+                                   f"{_MAX_PTRS} outputs")
         return emit_cuda_round(
             self.p_exprs,
             ["float" if d == torch.float32 else "int" for d in self.dtypes],

@@ -6,6 +6,8 @@ import ctypes
 
 import torch
 
+from repro_torch.core.guard import KernelLaunchError
+
 
 def check(name: str, t, dtype, shape=None, aligned: bool = True):
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
@@ -27,8 +29,8 @@ def raise_on(status: int, kernel: str):
     """A kernel's C entry point returns its launch's cudaError; 0 means
     launched."""
     if status != 0:
-        raise RuntimeError(f"CUDA {kernel} kernel launch failed: "
-                           f"cudaError {status}")
+        raise KernelLaunchError(f"CUDA {kernel} kernel launch failed: "
+                                f"cudaError {status}")
 
 
 def stream(t):

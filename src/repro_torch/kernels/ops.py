@@ -37,7 +37,7 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import iterate
+from repro_torch.core import guard, iterate
 from repro_torch.core.plan import (DENSE_FRONTIER, PUSH_RESOLUTION,
                                    _check_resolution, _normalize_switch_k,
                                    _plan_levels, assert_normalized)
@@ -143,7 +143,28 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
     The result carries ``push_iters``/``pull_iters``, ``resolve_work`` (Σ
     tile_nnz of the resolution tiles processed) and ``gather_work`` (the
     candidate slots the resolve kernel read) beside the fields of
-    ``IterationResult``."""
+    ``IterationResult``.
+
+    Inside it, a failure that ``guard.recoverable`` would let the fallback
+    chain take, an out-of-memory error aside, is raised again as a
+    ``KernelLaunchError``: a library that lacks an entry point, a
+    mis-typed ctypes call or a fault in the torch glue around the launches
+    is a kernel fault, never an infrastructure failure."""
+    try:
+        return _iterate_cuda(g, comps, plans, max_iter, tol, direction,
+                             dense_threshold, switch_k, push_resolution,
+                             sources, divergence_sentinel, plan)
+    except Exception as exc:
+        if guard.recoverable(exc) and not guard.out_of_memory(exc):
+            raise guard.KernelLaunchError(
+                f"the cuda engine failed: {type(exc).__name__}: {exc}"
+            ) from exc
+        raise
+
+
+def _iterate_cuda(g: Graph, comps, plans, max_iter, tol, direction,
+                  dense_threshold, switch_k, push_resolution, sources,
+                  divergence_sentinel, plan) -> iterate.IterationResult:
     n = g.n
     dev = g.device
     max_iter = max_iter if max_iter is not None else 2 * n + 4

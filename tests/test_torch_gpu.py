@@ -17,7 +17,11 @@ plus that float32 difference; the bfloat16 route's tensor cores take P as
 a high and a low bfloat16 part, which keeps it inside that difference, and
 the float32 route's take every operand as a high and a low TF32 part
 (3xTF32), which keeps it within the float32 limit.
-The cuda engine is held against the port's pull engine."""
+The cuda engine, the adaptive and dense engines and the handwritten kernel
+sets are held against the port's pull engine; under ``fallback=True`` an
+injected ``RuntimeError`` outside the kernel layer and an out-of-memory
+error end on adaptive, while a ``KernelLaunchError`` and a fault inside the
+kernel layer (a library without its entry point) propagate."""
 import dataclasses
 
 import numpy as np
@@ -306,6 +310,122 @@ def test_weighted_pagerank_push_equals_pull_on_card(cuda_device):
     assert torch.equal(_bits(pull.value), _bits(push.value))
     ref = TE.run_direct(g, dk, engine="pull")
     torch.testing.assert_close(pull.value, ref.value, rtol=1e-5, atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# The adaptive and dense engines, the handwritten kernel sets and the
+# fallback chain.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["adaptive", "dense"])
+@pytest.mark.parametrize("name", ["BFS", "SSSP", "WSP", "WP", "CC"])
+def test_reference_engines_on_card_match_pull(cuda_device, name, engine):
+    g = TS.rmat_graph(400, 3200, seed=11, device=cuda_device)
+    if name == "CC":
+        g = TS.undirected(g)
+    prog = TF.fuse(TU.ALL_SPECS[name]())
+    got = TE.run_program(g, prog, engine=engine)
+    want = TE.run_program(g, prog, engine="pull")
+    assert torch.equal(_bits(got.value), _bits(want.value))
+    assert (got.stats.engine_used, got.stats.fallbacks) == (engine, ())
+    assert got.value.device.type == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["adaptive", "dense"])
+def test_reference_engines_on_card_pagerank(cuda_device, engine):
+    g = TS.rmat_graph(400, 3200, seed=11, device=cuda_device)
+    dk = TSy.pagerank_kernels(g.n)
+    got = TE.run_direct(g, dk, engine=engine)
+    want = TE.run_direct(g, dk, engine="pull")
+    torch.testing.assert_close(got.value, want.value, rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["SSSP", "BFS", "WP", "CC"])
+def test_handwritten_sets_on_card_match_pull(cuda_device, name):
+    g = TS.rmat_graph(400, 3200, seed=11, device=cuda_device)
+    if name == "CC":
+        g = TS.undirected(g)
+    dk = TU.HANDWRITTEN[name]()
+    TER.reset_launches()
+    got = TE.run_direct(g, dk, engine="cuda")
+    torch.cuda.synchronize()
+    assert TER.LAUNCHES["pull"] == got.stats.pull_iters > 0
+    assert TER.LAUNCHES["push"] == got.stats.push_iters
+    want = TE.run_direct(g, dk, engine="pull")
+    assert torch.equal(_bits(got.value), _bits(want.value))
+    assert (got.stats.engine_used, got.stats.fallbacks) == ("cuda", ())
+
+
+@pytest.mark.gpu
+def test_fallback_on_card_ends_on_adaptive(cuda_device, monkeypatch):
+    g = TS.rmat_graph(400, 3200, seed=11, device=cuda_device)
+    prog = TF.fuse(TU.ALL_SPECS["SSSP"]())
+    want = TE.run_program(g, prog, engine="cuda")
+
+    def boom(*a, **k):
+        raise RuntimeError("injected fault")
+
+    monkeypatch.setattr(TO, "iterate_cuda", boom)
+    got = TE.run_program(g, prog, engine="cuda", fallback=True)
+    assert got.stats.engine_used == "adaptive"
+    assert got.stats.fallbacks == (
+        ("cuda", "adaptive", "RuntimeError: injected fault"),)
+    assert torch.equal(_bits(got.value), _bits(want.value))
+
+
+@pytest.mark.gpu
+def test_kernel_launch_error_propagates_on_card(cuda_device, monkeypatch):
+    from repro_torch.core.guard import KernelLaunchError
+    g = TS.rmat_graph(400, 3200, seed=11, device=cuda_device)
+    calls = []
+
+    def boom(*a, **k):
+        calls.append(1)
+        raise KernelLaunchError("CUDA pull kernel launch failed: "
+                                "cudaError 700")
+
+    monkeypatch.setattr(TO, "iterate_cuda", boom)
+    with pytest.raises(KernelLaunchError, match="cudaError 700"):
+        TE.run_direct(g, TU.HANDWRITTEN["SSSP"](), engine="cuda",
+                      fallback=True)
+    assert calls == [1]
+
+
+@pytest.mark.gpu
+def test_out_of_memory_fallback_on_card(cuda_device, monkeypatch):
+    """An out-of-memory error inside the kernel layer takes the chain."""
+    g = TS.rmat_graph(400, 3200, seed=11, device=cuda_device)
+    prog = TF.fuse(TU.ALL_SPECS["SSSP"]())
+    want = TE.run_program(g, prog, engine="cuda")
+
+    def boom(*a, **k):
+        raise torch.OutOfMemoryError("CUDA out of memory (injected)")
+
+    monkeypatch.setattr(TO, "sweep_round", boom)
+    got = TE.run_program(g, prog, engine="cuda", fallback=True)
+    assert got.stats.engine_used == "adaptive"
+    assert got.stats.fallbacks == (
+        ("cuda", "adaptive",
+         "OutOfMemoryError: CUDA out of memory (injected)"),)
+    assert torch.equal(_bits(got.value), _bits(want.value))
+
+
+@pytest.mark.gpu
+def test_kernel_layer_fault_propagates_on_card(cuda_device, monkeypatch):
+    """A round library without its entry points fails in the launch
+    wrapper; the cuda engine raises that as a ``KernelLaunchError``, which
+    the chain never takes."""
+    from repro_torch.core.guard import KernelLaunchError
+    g = TS.rmat_graph(400, 3200, seed=11, device=cuda_device)
+    monkeypatch.setattr(TER.SweepRound, "library", lambda self: object())
+    with pytest.raises(KernelLaunchError,
+                       match="the cuda engine failed: AttributeError") as e:
+        TE.run_direct(g, TU.HANDWRITTEN["SSSP"](), engine="cuda",
+                      fallback=True)
+    assert isinstance(e.value.__cause__, AttributeError)
 
 
 # ---------------------------------------------------------------------------

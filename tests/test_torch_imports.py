@@ -1,5 +1,6 @@
 """Import hygiene of the port: it imports without JAX, and no file of the
-package (nor chip_smoke.py) imports ``jax`` or the JAX package ``repro``."""
+package (nor chip_smoke.py, nor the port's quickstart) imports ``jax`` or
+the JAX package ``repro``."""
 import os
 import re
 import subprocess
@@ -40,7 +41,9 @@ _BAD = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|"
 
 
 def test_no_jax_or_reference_imports_in_sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "examples" /
+                                         "quickstart_torch.py"]
     bad = []
     for f in files:
         for m in _BAD.finditer(f.read_text()):
