@@ -106,7 +106,23 @@ libraries at once, into ``build/repro_torch/``), and then
      with no event.  Every other ``cuda`` query of the run
      reports ``engine_used == "cuda"`` and no fallback.
    Each query line gives iterations, pull iterations, edge work and the
-   wall time beside the ``cuda`` query's.
+   wall time beside the ``cuda`` query's;
+6. drives the chunked, checkpointed and warm-started ``cuda`` fixpoints
+   through ``run_program`` / ``run_direct``, with snapshots in a temporary
+   directory removed at the end: on the SCALE-16 graph BFS (checkpoint
+   every 2 iterations), PageRank (pull−) and weighted PageRank with
+   ``model="push"`` (every 10), on the uniform graph BFS (every 2).  Each
+   query runs whole, in chunks, and killed through ``fault_hook`` after
+   its second chunk and resumed (``resume=True``); the chunked and the
+   resumed run must give the whole run's state bits, its six counters
+   and its launches of the three sweep kernels (set to 0 before each run
+   and read after; the killed run's and the resumed run's summed).  SSSP
+   warm-started from its converged state (``return_state`` /
+   ``init_state``) through both entry points takes one iteration to the
+   same bits, and resuming BFS under another source raises
+   ``CheckpointMismatchError``, with ``fallback=True`` too.  Each line
+   gives the snapshot bytes, the median save ms per chunk, the restore ms
+   and the warm walls of the chunked and the whole query.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -1211,6 +1227,219 @@ def main(argv) -> int:
         TE.clear_program_caches()
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------------
+    # Phase 6: chunked, checkpointed and warm-started cuda fixpoints,
+    # through the entry points, while the graphs they need live.  Each
+    # query runs whole, in chunks with a snapshot after each, killed after
+    # its second chunk and resumed; the sweep kernels' launch counts are
+    # set to 0 just before each run and read just after (none of them
+    # counts for the main path).
+    # ------------------------------------------------------------------
+    import contextlib
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.fixpoint import FixpointCheckpointer
+    ckpt_root = Path(tempfile.mkdtemp(prefix="grafs_ckpt_"))
+    phase6_rows = []
+    io_ms = {"save": [], "restore": []}
+
+    class Killed(Exception):
+        """The kill injected through ``fault_hook``."""
+
+    @contextlib.contextmanager
+    def timed_io():
+        """Time every snapshot save (the device-to-host copy and the
+        durable write) and restore (the read and the host-to-device
+        copy)."""
+        real_save = FixpointCheckpointer.save
+        real_restore = FixpointCheckpointer.restore
+
+        def save(self, carry, step):
+            t0 = time.perf_counter()
+            real_save(self, carry, step)
+            io_ms["save"].append((time.perf_counter() - t0) * 1e3)
+
+        def restore(self, carry_like):
+            t0 = time.perf_counter()
+            out = real_restore(self, carry_like)
+            torch.cuda.synchronize()
+            io_ms["restore"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        FixpointCheckpointer.save = save
+        FixpointCheckpointer.restore = restore
+        try:
+            yield
+        finally:
+            FixpointCheckpointer.save = real_save
+            FixpointCheckpointer.restore = real_restore
+
+    def counted(fn):
+        """``fn()`` with the sweep kernels' launches counted: (result, wall
+        ms, launches)."""
+        ER.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        return out, wall, {k: ER.LAUNCHES[k] for k in MAIN_KERNELS}
+
+    def killed_launches(make, every):
+        """Run ``make`` with a ``fault_hook`` that kills it after its second
+        chunk; the launches it made."""
+        real = KO.iterate_cuda
+
+        def killer(k):
+            if k >= 2 * every:
+                raise Killed(k)
+
+        KO.iterate_cuda = lambda *a, **kw: real(*a, fault_hook=killer, **kw)
+        ER.reset_launches()
+        try:
+            make()
+        except Killed:
+            pass
+        else:
+            raise RuntimeError("the kill after the second chunk never fired")
+        finally:
+            KO.iterate_cuda = real
+        torch.cuda.synchronize()
+        return {k: ER.LAUNCHES[k] for k in MAIN_KERNELS}
+
+    def snapshot_bytes(d):
+        step = max(d.glob("step_*"))
+        return sum(f.stat().st_size for f in step.iterdir())
+
+    def stat_tuple(r):
+        st = r.stats
+        return (st.iterations, st.push_iters, st.pull_iters, st.edge_work,
+                st.resolve_work, st.gather_work)
+
+    def phase6_case(label, g, make, every):
+        """``make(**kw)`` runs one cuda query through its entry point and
+        returns (result, state).  The chunked and the killed-and-resumed
+        runs must give the whole run's state bits, counters and launches
+        (the killed run's and the resumed run's summed)."""
+        d = ckpt_root / label.replace(" ", "_")
+        (mono, mono_st), mono_wall, mono_l = counted(make)
+        n_saves = len(io_ms["save"])
+        (ck, ck_st), ck_wall, ck_l = counted(lambda: make(
+            checkpoint_every=every, ckpt_dir=str(d / "chunked")))
+        saves = io_ms["save"][n_saves:]
+        kill_l = killed_launches(lambda: make(
+            checkpoint_every=every, ckpt_dir=str(d / "killed")), every)
+        n_rest = len(io_ms["restore"])
+        (rs, rs_st), rs_wall, rs_l = counted(lambda: make(
+            checkpoint_every=every, ckpt_dir=str(d / "killed"), resume=True))
+        restore_ms = io_ms["restore"][n_rest:]
+        mono_warm = counted(make)[1]
+        ck_warm = counted(lambda: make(checkpoint_every=every,
+                                       ckpt_dir=str(d / "again")))[1]
+        for r in (mono, ck, rs):
+            on_cuda(r, f"phase 6 {label}")
+        same = all(torch.equal(bits(a), bits(b)) for x in (ck_st, rs_st)
+                   for a, b in zip(mono_st, x))
+        counters = stat_tuple(mono)
+        ok = (same and stat_tuple(ck) == counters
+              and stat_tuple(rs) == counters and ck_l == mono_l
+              and {k: kill_l[k] + rs_l[k] for k in MAIN_KERNELS} == mono_l
+              and len(restore_ms) == 1)
+        row = {"query": label, "n": g.n, "edges": g.num_edges,
+               "checkpoint_every": every,
+               "iterations": counters[0], "push_iters": counters[1],
+               "pull_iters": counters[2], "edge_work": counters[3],
+               "resolve_work": counters[4], "gather_work": counters[5],
+               "launches": mono_l, "chunked_launches": ck_l,
+               "killed_launches": kill_l, "resumed_launches": rs_l,
+               "snapshots": len(saves),
+               "snapshot_bytes": snapshot_bytes(d / "chunked"),
+               "save_ms_median": statistics.median(saves),
+               "restore_ms": restore_ms[0] if restore_ms else None,
+               "wall_ms": mono_wall, "chunked_wall_ms": ck_wall,
+               "resumed_wall_ms": rs_wall, "warm_wall_ms": mono_warm,
+               "chunked_warm_wall_ms": ck_warm,
+               "match": "bitwise" if ok else "MISMATCH"}
+        log("phase 6 " + json.dumps(row))
+        phase6_rows.append(row)
+        if not ok:
+            raise RuntimeError(f"phase 6 {label}: the chunked or resumed "
+                               "fixpoint differs from the whole one")
+
+    def phase6_warm(g, label):
+        """SSSP warm-started from its converged state through run_program
+        and run_direct (the handwritten set): one iteration, the same
+        bits."""
+        (cold, state), cold_wall, cold_l = counted(lambda: TE.run_program(
+            g, progs["SSSP"], engine="cuda", return_state=True))
+        on_cuda(cold, "phase 6 cold SSSP")
+        if state[0].device.type != "cuda":
+            raise RuntimeError("return_state gave a state off the card")
+        warm, wall, warm_l = counted(lambda: TE.run_program(
+            g, progs["SSSP"], engine="cuda", init_state=state))
+        direct, d_wall, d_l = counted(lambda: TE.run_direct(
+            g, handwritten["SSSP"], engine="cuda", init_state=state))
+        for r, what, w, lc in ((warm, "run_program", wall, warm_l),
+                               (direct, "run_direct", d_wall, d_l)):
+            on_cuda(r, f"phase 6 warm {what}")
+            ok = r.stats.iterations == 1 and torch.equal(
+                bits(r.value), bits(state[0] if what == "run_direct"
+                                    else cold.value))
+            row = {"query": f"warm SSSP {label} ({what})",
+                   "iterations": r.stats.iterations,
+                   "cold_iterations": cold.stats.iterations,
+                   "launches": lc, "cold_launches": cold_l,
+                   "warm_wall_ms": w, "cold_wall_ms": cold_wall,
+                   "match": "bitwise" if ok else "MISMATCH"}
+            log("phase 6 " + json.dumps(row))
+            phase6_rows.append(row)
+            if not ok:
+                raise RuntimeError(f"phase 6 warm SSSP ({what}) took "
+                                   f"{r.stats.iterations} iterations or "
+                                   "changed the answer")
+
+    def phase6_mismatch(g, d):
+        """Resuming the BFS snapshots under another source must raise
+        CheckpointMismatchError, which the fallback chain never takes."""
+        for fallback in (False, True):
+            try:
+                TE.run_program(g, progs["BFS"], engine="cuda", source=3,
+                               checkpoint_every=2, ckpt_dir=str(d),
+                               resume=True, fallback=fallback)
+            except guard.CheckpointMismatchError:
+                pass
+            else:
+                raise RuntimeError("a snapshot resumed under another source "
+                                   f"(fallback={fallback})")
+        log("phase 6 " + json.dumps(
+            {"query": "resume BFS rmat16 under source 3",
+             "raised": "CheckpointMismatchError",
+             "with_fallback": "CheckpointMismatchError"}))
+
+    def program_query(g, name):
+        def make(**kw):
+            return TE.run_program(g, progs[name], engine="cuda",
+                                  return_state=True, **kw)
+        return make
+
+    def direct_query(g, dk, **fixed):
+        def make(**kw):
+            r = TE.run_direct(g, dk, engine="cuda", **fixed, **kw)
+            return r, (r.value,)
+        return make
+
+    def phase6_rmat16(g):
+        n = g.n
+        with timed_io():
+            phase6_case("BFS rmat16", g, program_query(g, "BFS"), 2)
+            phase6_case("PageRank rmat16", g, direct_query(
+                g, pagerank_kernels(n, tol=1e-4 / n)), 10)
+            phase6_case("weighted PageRank push rmat16", g, direct_query(
+                g, weighted_pagerank_kernels(n, tol=1e-4 / n),
+                model="push"), 10)
+            phase6_warm(g, "rmat16")
+            phase6_mismatch(g, ckpt_root / "BFS_rmat16" / "chunked")
+
     setup("rmat16", g16)
     ER.reset_launches()
     for name in ("BFS", "SSSP", "WSP"):
@@ -1245,6 +1474,9 @@ def main(argv) -> int:
     t5 = time.perf_counter()
     phase5_rmat16(g16)
     phase5_s = time.perf_counter() - t5
+    t6 = time.perf_counter()
+    phase6_rmat16(g16)
+    phase6_s = time.perf_counter() - t6
     gu16 = TS.undirected(g16)
     TE.clear_graph_caches(g16)
     torch.cuda.empty_cache()
@@ -1293,6 +1525,14 @@ def main(argv) -> int:
     adaptive_query("BFS uniform21", lambda eng: TE.run_program(
         gu, progs["BFS"], engine=eng), True)
     phase5_s += time.perf_counter() - t5
+    t6 = time.perf_counter()
+    with timed_io():
+        phase6_case("BFS uniform21", gu, program_query(gu, "BFS"), 2)
+    shutil.rmtree(ckpt_root)
+    phase6_s += time.perf_counter() - t6
+    log(f"phase 6: {phase6_s:.1f} s")
+    record["phase6"] = phase6_rows
+    record["phase6_s"] = phase6_s
     level_cases("uniform21", gu, ("int n+1",))
     softmax_case("uniform21 in-layout", gu)
     del gu

@@ -50,19 +50,13 @@ _BOT_CUTOFF = 1e8
 # Keyword arguments of the reference entry points that belong to later
 # slices of the port; passing one with a non-default value raises.
 _LATER = {
-    "init_state": "warm-started fixpoints (ROADMAP Queue 1, item 8)",
     "delta": "incremental fixpoints (ROADMAP Queue 1, item 9)",
-    "return_state": "warm-started fixpoints (ROADMAP Queue 1, item 8)",
-    "checkpoint_every": "checkpointed fixpoints (ROADMAP Queue 1, item 8)",
-    "ckpt_dir": "checkpointed fixpoints (ROADMAP Queue 1, item 8)",
-    "resume": "checkpointed fixpoints (ROADMAP Queue 1, item 8)",
     "mesh": "the sharded engines (ROADMAP Queue 1, item 11)",
     "axes": "the sharded engines (ROADMAP Queue 1, item 11)",
     "shard_strategy": "the sharded engines (ROADMAP Queue 1, item 11)",
     "sources": "batched queries (ROADMAP Queue 1, item 7)",
 }
-_LATER_DEFAULTS = {"resume": False, "return_state": False,
-                   "axes": ("data",)}
+_LATER_DEFAULTS = {"axes": ("data",)}
 
 # The same-engine retry budget of the fallback chain when no ``ft_config``
 # is given: the reference's constants, kept for parity, so they differ from
@@ -233,10 +227,12 @@ def _check_outcome(res, max_iter_eff, on_nonconverge):
 
 
 def _run(engine: str, plan: ExecutionPlan, g, comps, plans, max_iter, tol,
-         sources):
+         sources, warm: dict):
     """One iteration round on ``engine``, which differs from ``plan.engine``
     only while walking the fallback chain; the engine-dependent plan fields
-    then re-resolve (``degrade_plan``)."""
+    then re-resolve (``degrade_plan``).  ``warm`` holds the warm-start and
+    checkpoint arguments, which only the cuda engine reads: as in the
+    reference, a query degraded to another engine runs cold."""
     plan = _plan.degrade_plan(plan, engine)
     if engine in ("pull", "push"):
         idempotent = all(iterate.plan_idempotent(p) for p in plans)
@@ -255,7 +251,7 @@ def _run(engine: str, plan: ExecutionPlan, g, comps, plans, max_iter, tol,
     if engine == "cuda":
         from repro_torch.kernels import ops as kops
         return kops.iterate_cuda(g, comps, plans, max_iter=max_iter, tol=tol,
-                                 sources=sources, plan=plan)
+                                 sources=sources, plan=plan, **warm)
     raise ValueError(f"unknown engine {engine}")
 
 
@@ -330,6 +326,9 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
                 on_nonconverge: str = "raise",
                 fallback: bool = False, ft_config=None,
                 divergence_sentinel: bool = True,
+                checkpoint_every: Optional[int] = None,
+                ckpt_dir=None, resume: bool = False,
+                init_state=None, return_state: bool = False,
                 adaptive: bool = False,
                 plan: Optional[ExecutionPlan] = None,
                 explain: bool = False,
@@ -349,7 +348,18 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
     that exhausts ``max_iter`` or trips the divergence sentinel;
     ``fallback=True`` degrades an infrastructure failure down the fallback
     chain (cuda → adaptive) with bounded retry (``ft_config`` tunes the
-    budget), recording each event in the stats."""
+    budget), recording each event in the stats.
+
+    Chunked fixpoints (cuda engine, ``kernels.ops.iterate_cuda``):
+    ``checkpoint_every`` / ``ckpt_dir`` / ``resume`` snapshot the loop
+    carry every ``checkpoint_every`` iterations and resume from the newest
+    snapshot; ``init_state`` (per-component [n] tensors or arrays)
+    warm-starts the round.  ``return_state=True`` returns ``(result,
+    state)``, ``state`` the round's final per-component [n] tensors on the
+    graph's device, to feed back as the next query's ``init_state``.  The
+    warm hooks need a single-round program; with ``init_state`` or
+    ``return_state`` the default engine is cuda.  A query that falls back
+    to adaptive runs cold."""
     _reject_later(later)
     _prepare(g, device)
     if plan is None or explain:
@@ -358,15 +368,34 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
             push_resolution=push_resolution, validate=validate,
             on_nonconverge=on_nonconverge, fallback=fallback,
             divergence_sentinel=divergence_sentinel, adaptive=adaptive,
+            default_engine="cuda" if (init_state is not None
+                                      or return_state) else "pull",
             explain=explain)
         if explain:
             return planned
         plan = planned
+    if (checkpoint_every is not None or resume) and plan.engine != "cuda":
+        raise ValueError("checkpointed fixpoints are a cuda-engine feature; "
+                         f"got engine={plan.engine!r}")
+    if init_state is not None or return_state:
+        if plan.engine != "cuda":
+            raise ValueError(
+                "init_state/return_state warm-start hooks are a cuda-engine "
+                f"feature; got engine={plan.engine!r}")
+        iter_rounds = [r for _, r in prog.rounds if r.leaves]
+        if len(prog.rounds) != 1 or len(iter_rounds) != 1:
+            raise ValueError(
+                "init_state/return_state need a single-round program (one "
+                f"iteration round, no LetRound chain); got "
+                f"{len(prog.rounds)} rounds")
+    warm = dict(checkpoint_every=checkpoint_every, ckpt_dir=ckpt_dir,
+                resume=resume, init_state=init_state)
     chk = _validate_inputs(g, source=source) if plan.validate else None
     max_iter_eff = max_iter if max_iter is not None else 2 * g.n + 4
     stats = ExecStats(engine_used=plan.engine, plan=plan)
     named: dict = {}
     final = None
+    state_out = None
     for bind_name, round_ in prog.rounds:
         env: dict = dict(named)
         if round_.leaves:
@@ -376,13 +405,15 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
             src_over = _source_overrides(round_, source)
             res, eng_used, events, retries = _dispatch_guarded(
                 lambda eng: _run(eng, plan, g, comps, plans, max_iter, tol,
-                                 src_over),
+                                 src_over, warm),
                 plan.engine, plan.fallback, ft_config)
             stats.engine_used = eng_used
             stats.fallbacks += tuple(ev.as_tuple() for ev in events)
             stats.exec_retries += retries
             _accumulate(stats, res, synth_ms)
             _check_outcome(res, max_iter_eff, plan.on_nonconverge)
+            if return_state:
+                state_out = tuple(res.state)
             for leaf in round_.leaves:
                 env[leaf.name] = res.state[plan_output(leaf.plan)]
         out = _finish_round(g, round_, env)
@@ -391,7 +422,10 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
             named[prefix + bind_name] = out
         final = out
     _plan.record_feedback(g, plan.kind, stats)
-    return ExecResult(value=final, named=named, stats=stats)
+    result = ExecResult(value=final, named=named, stats=stats)
+    if return_state:
+        return result, state_out
+    return result
 
 
 def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
@@ -403,6 +437,9 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
                on_nonconverge: str = "raise",
                fallback: bool = False, ft_config=None,
                divergence_sentinel: bool = True,
+               checkpoint_every: Optional[int] = None,
+               ckpt_dir=None, resume: bool = False,
+               init_state=None,
                adaptive: bool = False,
                plan: Optional[ExecutionPlan] = None,
                explain: bool = False,
@@ -411,8 +448,9 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
     engine.  ``model`` pins the cuda engine's sweep direction; by default
     idempotent kernels switch per iteration and the rest run the pull−
     recompute.  The cuda engine needs ``dk.p_expr`` (the kernel is
-    generated from it).  ``fallback`` and ``ft_config`` act as in
-    ``run_program``."""
+    generated from it).  ``fallback``, ``ft_config``, ``checkpoint_every``,
+    ``ckpt_dir``, ``resume`` and ``init_state`` act as in ``run_program``;
+    with ``init_state`` the default engine is cuda."""
     from repro_torch.core.fusion import Prim
 
     _reject_later(later)
@@ -423,10 +461,15 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
             push_resolution=push_resolution, validate=validate,
             on_nonconverge=on_nonconverge, fallback=fallback,
             divergence_sentinel=divergence_sentinel, adaptive=adaptive,
+            default_engine="cuda" if init_state is not None else "pull",
             explain=explain)
         if explain:
             return planned
         plan = planned
+    if (checkpoint_every is not None or resume or init_state is not None) \
+            and plan.engine != "cuda":
+        raise ValueError("checkpointed/warm-started fixpoints are a "
+                         f"cuda-engine feature; got engine={plan.engine!r}")
     if source is not None and dk.source is None:
         raise ValueError(
             "run_direct source overrides need a source-generic DirectKernels "
@@ -444,9 +487,11 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
     plans = [Prim(dk.rop, 0)]
     _check_preconditions(chk, [comp], plans)
     src_over = None if source is None else {0: int(source)}
+    warm = dict(checkpoint_every=checkpoint_every, ckpt_dir=ckpt_dir,
+                resume=resume, init_state=init_state)
     res, eng_used, events, retries = _dispatch_guarded(
         lambda eng: _run(eng, plan, g, [comp], plans, dk.max_iter, dk.tol,
-                         src_over),
+                         src_over, warm),
         plan.engine, plan.fallback, ft_config)
     stats = ExecStats(engine_used=eng_used,
                       fallbacks=tuple(ev.as_tuple() for ev in events),

@@ -23,8 +23,13 @@ trace attributes its device time.
 The carry is the reference's nine fields: state, active, k, work, pushes,
 resolve work, gather work, divergence, residual.  The work counters are
 int64 on the device (the reference accumulates them in float32, exact only
-below 2²⁴) and are read once, at the end.  Checkpointed and warm-started
-fixpoints, ``delta=`` seeding and batches belong to later slices.
+below 2²⁴) and are read once, at the end.  The query is cut as the
+reference's ``(init, step)`` pair: a per-call set-up (``_Fixpoint``),
+``_init_carry`` and ``_advance(carry, k_stop)``, the one loop body.  The
+monolithic query is ``_advance(_init_carry(), max_iter)``; a chunked one
+(checkpointed, resumed or warm-started) calls ``_advance`` once per chunk
+on the same carry, so both are bitwise the same.  ``delta=`` seeding and
+batches belong to later slices.
 
 ``embedding_bag`` and ``ell_softmax`` are the embedding-bag and ELL-softmax
 kernels' entry points under the names the reference's ``ops`` gives them.
@@ -34,9 +39,11 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.checkpoint.fixpoint import FixpointCheckpointer
 from repro_torch.core import guard, iterate
 from repro_torch.core.plan import (DENSE_FRONTIER, PUSH_RESOLUTION,
                                    _check_resolution, _normalize_switch_k,
@@ -122,12 +129,63 @@ def _padded_init_state(comps, n, n_pad, sources, device):
     return tuple(out)
 
 
+def _srcs_vector(comps, sources=None) -> list:
+    """The effective source per component (``sources`` overrides
+    ``cr.source`` for sourced components), −1 where a component has
+    none."""
+    vals = []
+    for cr in comps:
+        if cr.source is None:
+            vals.append(-1)
+        elif sources is not None and cr.idx in sources:
+            vals.append(int(sources[cr.idx]))
+        else:
+            vals.append(int(cr.source))
+    return vals
+
+
+def _fixpoint_fingerprint(g, comps, plans, use, max_iter, tol, block_v,
+                          block_e, push_resolution, switch_k, srcs) -> dict:
+    """JSON-able identity of a chunked fixpoint, the reference's fields: a
+    checkpoint written under one fingerprint must never resume another
+    query (a different graph, plan structure, sources or knobs).  The
+    device is not part of it, so a snapshot resumes on any device."""
+    return {
+        "n": int(g.n), "num_edges": int(g.num_edges),
+        "plans": repr(tuple(tuple(_plan_levels(p)) for p in plans)),
+        "comps": repr(tuple((cr.idx, cr.op,
+                             str(cr.dtype).removeprefix("torch."),
+                             cr.e_fn is not None) for cr in comps)),
+        "use": list(use), "max_iter": int(max_iter), "tol": float(tol),
+        "block_v": int(block_v), "block_e": int(block_e),
+        "push_resolution": str(push_resolution),
+        "switch_k": None if switch_k is None else float(switch_k),
+        "srcs": [int(s) for s in srcs],
+    }
+
+
+@contextlib.contextmanager
+def _kernel_faults():
+    """Raise a failure that ``guard.recoverable`` would let the fallback
+    chain take, an out-of-memory error aside, as a ``KernelLaunchError``."""
+    try:
+        yield
+    except Exception as exc:
+        if guard.recoverable(exc) and not guard.out_of_memory(exc):
+            raise guard.KernelLaunchError(
+                f"the cuda engine failed: {type(exc).__name__}: {exc}"
+            ) from exc
+        raise
+
+
 def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
                  tol: float = 0.0, direction: str = "auto",
                  dense_threshold: float = DENSE_FRONTIER,
                  switch_k="auto", push_resolution: str = PUSH_RESOLUTION,
                  sources: Optional[dict] = None,
                  divergence_sentinel: bool = True,
+                 init_state=None, checkpoint_every: Optional[int] = None,
+                 ckpt_dir=None, resume: bool = False, fault_hook=None,
                  plan=None) -> iterate.IterationResult:
     """Fixpoint of the fused reduction with CUDA edge sweeps on the graph's
     device (the plain versions of the kernels when the graph lies on the
@@ -145,161 +203,281 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
     candidate slots the resolve kernel read) beside the fields of
     ``IterationResult``.
 
-    Inside it, a failure that ``guard.recoverable`` would let the fallback
-    chain take, an out-of-memory error aside, is raised again as a
-    ``KernelLaunchError``: a library that lacks an entry point, a
-    mis-typed ctypes call or a fault in the torch glue around the launches
-    is a kernel fault, never an infrastructure failure."""
-    try:
-        return _iterate_cuda(g, comps, plans, max_iter, tol, direction,
-                             dense_threshold, switch_k, push_resolution,
-                             sources, divergence_sentinel, plan)
-    except Exception as exc:
-        if guard.recoverable(exc) and not guard.out_of_memory(exc):
-            raise guard.KernelLaunchError(
-                f"the cuda engine failed: {type(exc).__name__}: {exc}"
-            ) from exc
-        raise
+    Chunked execution (the loop body is the whole query's, so the result
+    is bitwise the same):
+
+    ``init_state``
+        per-component [n] tensors or arrays to warm-start from (e.g. a
+        previous query's converged state); padding keeps the identity and
+        the frontier starts all ones.
+    ``checkpoint_every`` / ``ckpt_dir`` / ``resume``
+        run the loop in chunks of ``checkpoint_every`` iterations and
+        snapshot the carry through ``checkpoint.FixpointCheckpointer``
+        after each; ``resume=True`` restores the newest snapshot whose
+        fingerprint matches (onto this graph's device) and continues.
+    ``fault_hook``
+        test-only callable invoked with the iteration count after each
+        chunk: fault-injection tests raise from it to kill a run.
+
+    Inside the set-up and the loop, a failure that ``guard.recoverable``
+    would let the fallback chain take, an out-of-memory error aside, is
+    raised again as a ``KernelLaunchError``: a library that lacks an entry
+    point, a mis-typed ctypes call or a fault in the torch glue around the
+    launches is a kernel fault, never an infrastructure failure.  The
+    checkpoint I/O, a ``CheckpointMismatchError`` and the hook's
+    exceptions pass through unchanged."""
+    if checkpoint_every is not None and int(checkpoint_every) < 1:
+        raise ValueError("checkpoint_every must be >= 1")
+    if (checkpoint_every is not None or resume) and ckpt_dir is None:
+        raise ValueError("checkpoint_every/resume require ckpt_dir")
+    with _kernel_faults():
+        fx = _Fixpoint(g, comps, plans, max_iter, tol, direction,
+                       dense_threshold, switch_k, push_resolution,
+                       divergence_sentinel, plan)
+        carry = _init_carry(fx, sources)
+    max_iter = fx.max_iter
+    ckpt = None
+    if ckpt_dir is not None:
+        ckpt = FixpointCheckpointer(ckpt_dir, fingerprint=_fixpoint_fingerprint(
+            g, comps, plans, fx.use, max_iter, tol, fx.block_v, fx.block_e,
+            fx.push_resolution, fx.switch_k, _srcs_vector(comps, sources)))
+    restored = ckpt.restore(_snapshot(carry)) if resume else None
+    if restored is not None:
+        carry = _from_snapshot(restored)
+    elif init_state is not None:
+        carry = _warm_start_carry(carry, comps, init_state, g.n)
+    # without checkpoint_every one chunk runs the whole query
+    chunk = int(checkpoint_every) if checkpoint_every else max_iter
+    while carry[2] < max_iter:
+        k0 = carry[2]
+        with _kernel_faults():
+            carry, emptied = _advance(fx, carry, min(k0 + chunk, max_iter))
+        if carry[2] == k0:           # the frontier was empty already
+            break
+        if ckpt is not None and checkpoint_every is not None:
+            ckpt.save(_snapshot(carry), carry[2])
+        if fault_hook is not None:
+            fault_hook(carry[2])
+        if emptied:
+            break
+    with _kernel_faults():
+        return _finish(fx, carry)
 
 
-def _iterate_cuda(g: Graph, comps, plans, max_iter, tol, direction,
-                  dense_threshold, switch_k, push_resolution, sources,
-                  divergence_sentinel, plan) -> iterate.IterationResult:
-    n = g.n
-    dev = g.device
-    max_iter = max_iter if max_iter is not None else 2 * n + 4
-    idempotent = all(iterate.plan_idempotent(p) for p in plans)
-    if plan is not None:
-        assert_normalized(plan)
-        direction, dense_threshold = plan.direction, plan.dense_threshold
-        switch_k, push_resolution = plan.switch_k, plan.push_resolution
-        divergence_sentinel = plan.divergence_sentinel
-        use = _directions_used(direction, idempotent)
-    else:
-        use = _directions_used(direction, idempotent)
-        switch_k = _normalize_switch_k(
-            switch_k, dense_threshold if len(use) == 2 else DENSE_FRONTIER)
-        push_resolution = _check_resolution(push_resolution)
-    rnd = sweep_round(comps, plans)
-    comps_by_idx = {cr.idx: cr for cr in comps}
-    ell = {"pull": blocked_ell_cached(g, direction="in") if "pull" in use
-           else None,
-           "push": blocked_ell_cached(g, direction="out") if "push" in use
-           else None}
-    sorted_res = push_resolution == "sorted" and "push" in use
-    res = push_resolution_cached(g) if sorted_res else None
-    first = ell[use[0]]
-    n_pad = first.n_pad
-    out_deg = g.out_deg
-    out_deg_pad = torch.zeros(n_pad, dtype=torch.float32, device=dev)
-    out_deg_pad[:n] = out_deg.clamp(min=1).to(torch.float32)
-    # unclamped degrees for the Gemini |E_frontier| estimate (exact int64)
-    out_deg_raw = torch.zeros(n_pad, dtype=torch.int64, device=dev)
-    out_deg_raw[:n] = out_deg.to(torch.int64)
-    wdeg_pad = torch.ones(n_pad, dtype=torch.float32, device=dev)
-    wdeg_pad[:n] = w_out_deg(g)
-    num_edges = int(first.tile_nnz.sum())
-    nv = float(n)
+class _Fixpoint:
+    """The per-call set-up of one ``iterate_cuda`` query: plan knobs,
+    layouts, degrees, the sweep round and the static activities.  Derived
+    anew on every call (the layouts and the round from their caches), it
+    never enters the carry."""
 
-    tiles_static = first.tiles_static
-    # A non-idempotent round sweeps every tile each iteration, so under
-    # sorted resolution its resolution-tile activity is the same every
-    # iteration (every live tile, which is also what the resolve kernel's
-    # has-pred probe must cover): computed once here.
-    res_static = None
-    if sorted_res and not idempotent:
-        res_static = _er.resolution_tile_activity(res.contrib, tiles_static,
-                                                  res.tile_nnz)
+    def __init__(self, g, comps, plans, max_iter, tol, direction,
+                 dense_threshold, switch_k, push_resolution,
+                 divergence_sentinel, plan):
+        n = g.n
+        dev = g.device
+        self.g, self.comps, self.plans, self.tol = g, comps, plans, tol
+        self.nv = float(n)
+        self.max_iter = max_iter if max_iter is not None else 2 * n + 4
+        self.idempotent = all(iterate.plan_idempotent(p) for p in plans)
+        if plan is not None:
+            assert_normalized(plan)
+            direction, dense_threshold = plan.direction, plan.dense_threshold
+            switch_k, push_resolution = plan.switch_k, plan.push_resolution
+            divergence_sentinel = plan.divergence_sentinel
+            self.use = _directions_used(direction, self.idempotent)
+        else:
+            self.use = _directions_used(direction, self.idempotent)
+            switch_k = _normalize_switch_k(
+                switch_k,
+                dense_threshold if len(self.use) == 2 else DENSE_FRONTIER)
+            push_resolution = _check_resolution(push_resolution)
+        self.dense_threshold, self.switch_k = dense_threshold, switch_k
+        self.push_resolution = push_resolution
+        self.sentinel = divergence_sentinel
+        self.rnd = sweep_round(comps, plans)
+        self.comps_by_idx = {cr.idx: cr for cr in comps}
+        self.ell = {"pull": blocked_ell_cached(g, direction="in")
+                    if "pull" in self.use else None,
+                    "push": blocked_ell_cached(g, direction="out")
+                    if "push" in self.use else None}
+        self.sorted_res = push_resolution == "sorted" and "push" in self.use
+        self.res = push_resolution_cached(g) if self.sorted_res else None
+        first = self.ell[self.use[0]]
+        self.block_v, self.block_e = first.block_v, first.block_e
+        self.n_pad = n_pad = first.n_pad
+        out_deg = g.out_deg
+        self.out_deg_pad = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+        self.out_deg_pad[:n] = out_deg.clamp(min=1).to(torch.float32)
+        # unclamped degrees for the Gemini |E_frontier| estimate (exact
+        # int64)
+        self.out_deg_raw = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+        self.out_deg_raw[:n] = out_deg.to(torch.int64)
+        self.wdeg_pad = torch.ones(n_pad, dtype=torch.float32, device=dev)
+        self.wdeg_pad[:n] = w_out_deg(g)
+        self.num_edges = int(first.tile_nnz.sum())
+        self.tiles_static = first.tiles_static
+        # A non-idempotent round sweeps every tile each iteration, so under
+        # sorted resolution its resolution-tile activity is the same every
+        # iteration (every live tile, which is also what the resolve
+        # kernel's has-pred probe must cover): computed once here.
+        self.res_static = None
+        if self.sorted_res and not self.idempotent:
+            self.res_static = _er.resolution_tile_activity(
+                self.res.contrib, self.tiles_static, self.res.tile_nnz)
+        self.ones_act = torch.ones(n_pad, dtype=torch.int32, device=dev)
 
-    def sweep(d, state_d, active_i32, tile_act, need_hp):
-        """One sweep + its resolution → (red, hp, resolve work, gather
-        work)."""
-        e = ell[d]
-        args = (e.nbrs, e.weight, e.capacity, e.mask, tile_act, state_d,
-                active_i32, out_deg_pad, wdeg_pad, nv, need_hp)
-        if d == "pull":
-            red, hp = _er.fused_ell_sweep(rnd, *args)
-            return red, hp, 0, 0
-        if sorted_res:
-            res_act = res_static if res_static is not None else \
-                _er.resolution_tile_activity(res.contrib, tile_act,
-                                             res.tile_nnz)
-            red, hp = _er.fused_ell_push_sweep(
-                rnd, *args, resolution="sorted",
-                res=(res.in2out, res.valid, res_act))
-            res_w = (res.tile_nnz.to(torch.int64) * res_act).sum()
-            return red, hp, res_w, res_w
-        red, hp = _er.fused_ell_push_sweep(rnd, *args, resolution="scatter")
-        return red, hp, e.nbrs.numel(), 0
 
-    state = _padded_init_state(comps, n, n_pad, sources, dev)
-    active = torch.ones(n_pad, dtype=torch.bool, device=dev)
+def _init_carry(fx: _Fixpoint, sources) -> tuple:
+    """The nine-field carry of a cold start: state (tuple of [n_pad]),
+    active (bool [n_pad], all ones), k, work, pushes, resolve work, gather
+    work, divergence, residual.  ``k`` and ``pushes`` are host ints; the
+    rest lie on the graph's device."""
+    dev = fx.g.device
+    state = _padded_init_state(fx.comps, fx.g.n, fx.n_pad, sources, dev)
+    active = torch.ones(fx.n_pad, dtype=torch.bool, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    work, res_work, gather_work = zero, zero, zero
     div = torch.zeros((), dtype=torch.bool, device=dev)
     resid = torch.zeros((), dtype=torch.float32, device=dev)
-    ones_act = torch.ones(n_pad, dtype=torch.int32, device=dev)
-    k = pushes = 0
-    while k < max_iter:
+    return (state, active, 0, zero, 0, zero, zero, div, resid)
+
+
+def _snapshot(carry) -> tuple:
+    """The carry as a checkpoint tree: ``k`` and ``pushes`` as 0-d int64."""
+    return carry[:2] + (torch.tensor(carry[2], dtype=torch.int64),
+                        carry[3], torch.tensor(carry[4], dtype=torch.int64)) \
+        + carry[5:]
+
+
+def _from_snapshot(snap) -> tuple:
+    return tuple(snap[:2]) + (int(snap[2]), snap[3], int(snap[4])) \
+        + tuple(snap[5:])
+
+
+def _warm_start_carry(carry, comps, init_state, n) -> tuple:
+    """Override the initial carry's state with per-component [n] tensors or
+    arrays, cast to each component's dtype on the carry's device: padding
+    keeps the identity, and the frontier stays all ones (padding included)
+    so the first sweep re-derives the true active set."""
+    init_state = tuple(init_state)
+    if len(init_state) != len(comps):
+        raise ValueError(f"init_state has {len(init_state)} arrays for "
+                         f"{len(comps)} components")
+    new_state = []
+    for ref, cr, arr in zip(carry[0], comps, init_state):
+        a = arr if isinstance(arr, torch.Tensor) else \
+            torch.from_numpy(np.array(arr))
+        a = a.to(device=ref.device, dtype=ref.dtype)
+        if tuple(a.shape) != (n,):
+            raise ValueError(f"init_state for component {cr.idx} has shape "
+                             f"{tuple(a.shape)}, expected ({n},)")
+        s = ref.clone()
+        s[:n] = a
+        new_state.append(s)
+    return (tuple(new_state),) + tuple(carry[1:])
+
+
+def _sweep(fx: _Fixpoint, d, state_d, active_i32, tile_act, need_hp):
+    """One sweep + its resolution → (red, hp, resolve work, gather work)."""
+    e = fx.ell[d]
+    args = (e.nbrs, e.weight, e.capacity, e.mask, tile_act, state_d,
+            active_i32, fx.out_deg_pad, fx.wdeg_pad, fx.nv, need_hp)
+    if d == "pull":
+        red, hp = _er.fused_ell_sweep(fx.rnd, *args)
+        return red, hp, 0, 0
+    if fx.sorted_res:
+        res = fx.res
+        res_act = fx.res_static if fx.res_static is not None else \
+            _er.resolution_tile_activity(res.contrib, tile_act, res.tile_nnz)
+        red, hp = _er.fused_ell_push_sweep(
+            fx.rnd, *args, resolution="sorted",
+            res=(res.in2out, res.valid, res_act))
+        res_w = (res.tile_nnz.to(torch.int64) * res_act).sum()
+        return red, hp, res_w, res_w
+    red, hp = _er.fused_ell_push_sweep(fx.rnd, *args, resolution="scatter")
+    return red, hp, e.nbrs.numel(), 0
+
+
+def _advance(fx: _Fixpoint, carry, k_stop: int) -> tuple:
+    """Run the loop body from ``carry`` until ``k == k_stop`` or the
+    frontier is empty: the one body of the monolithic and the chunked
+    fixpoint.  One host read per iteration.  Returns ``(carry,
+    emptied)``, ``emptied`` True when the loop stopped on an empty
+    frontier."""
+    comps, plans = fx.comps, fx.plans
+    idempotent, use = fx.idempotent, fx.use
+    (state, active, k, work, pushes, res_work, gather_work, div,
+     resid) = carry
+    emptied = False
+    while k < k_stop:
         switching = idempotent and len(use) == 2
-        if switching and switch_k is not None:
+        if switching and fx.switch_k is not None:
             # one host read per iteration: frontier non-empty + edge mass
             n_act, e_frontier = torch.stack(
-                [active.sum(), (active * out_deg_raw).sum()]).tolist()
-            use_push = e_frontier <= num_edges / switch_k
+                [active.sum(), (active * fx.out_deg_raw).sum()]).tolist()
+            use_push = e_frontier <= fx.num_edges / fx.switch_k
         elif switching:
             # the reference's frontier fraction: the padded frontier over n
             n_act = int(active.sum())
-            use_push = n_act / n <= dense_threshold
+            use_push = n_act / fx.g.n <= fx.dense_threshold
         else:
             n_act = int(active.any())
         if n_act == 0:
+            emptied = True
             break
         state_d = {cr.idx: state[i] for i, cr in enumerate(comps)}
         if idempotent:
             active_i32 = active.to(torch.int32)
             d = ("push" if use_push else "pull") if switching else use[0]
-            e = ell[d]
+            e = fx.ell[d]
             if d == "pull":
                 # the kernel derives the frontier's tile activity (an output)
                 with _step_range("pull"):
                     red, tile_act = _er.fused_ell_sweep_frontier(
-                        rnd, e.nbrs, e.weight, e.capacity, e.mask,
-                        e.tiles_static, state_d, active_i32, out_deg_pad,
-                        wdeg_pad, nv)
+                        fx.rnd, e.nbrs, e.weight, e.capacity, e.mask,
+                        e.tiles_static, state_d, active_i32, fx.out_deg_pad,
+                        fx.wdeg_pad, fx.nv)
                 res_w = gat_w = 0
             else:
                 with _step_range("push"):
                     tile_act = _er.tile_activity_push(e.tile_nnz, active_i32)
-                    red, _hp, res_w, gat_w = sweep(d, state_d, active_i32,
-                                                   tile_act, False)
+                    red, _hp, res_w, gat_w = _sweep(fx, d, state_d,
+                                                    active_i32, tile_act,
+                                                    False)
             work = work + (e.tile_nnz.to(torch.int64) * tile_act).sum()
             new_d = {}
             for p in plans:
                 new_d.update(iterate.plan_merge(p, state_d, red,
-                                                comps_by_idx))
+                                                fx.comps_by_idx))
         else:
             d = use[0]
-            work = work + num_edges
+            work = work + fx.num_edges
             with _step_range(d):
-                red, hp, res_w, gat_w = sweep(d, state_d, ones_act,
-                                              tiles_static, True)
+                red, hp, res_w, gat_w = _sweep(fx, d, state_d, fx.ones_act,
+                                               fx.tiles_static, True)
             red = iterate._apply_epilogue(comps, red)
-            new_d = iterate._recompute_merge(plans, comps_by_idx, state_d,
+            new_d = iterate._recompute_merge(plans, fx.comps_by_idx, state_d,
                                              red, hp)
         pushes += d == "push"
         res_work = res_work + res_w
         gather_work = gather_work + gat_w
         new = tuple(new_d[cr.idx] for cr in comps)
-        ch = iterate._changed(comps, new, state, tol)
-        if divergence_sentinel:
+        ch = iterate._changed(comps, new, state, fx.tol)
+        if fx.sentinel:
             div = div | iterate._divergence(comps, new)
             resid = iterate._residual(comps, new, state)
             ch = ch & ~div
         state, active = new, ch
         k += 1
-    out = iterate._finish(comps, tuple(s[:n] for s in state), active[:n], k,
-                          work, div, resid)
+    return (state, active, k, work, pushes, res_work, gather_work, div,
+            resid), emptied
+
+
+def _finish(fx: _Fixpoint, carry) -> iterate.IterationResult:
+    (state, active, k, work, pushes, res_work, gather_work, div,
+     resid) = carry
+    n = fx.g.n
+    out = iterate._finish(fx.comps, tuple(s[:n] for s in state), active[:n],
+                          k, work, div, resid)
     out.push_iters = pushes
     out.pull_iters = k - pushes
     out.resolve_work = int(res_work)

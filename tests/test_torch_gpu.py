@@ -776,3 +776,102 @@ def test_fixed_wrappers_reject_bad_card_tensors(cuda_device):
         TER.ell_level_reduce(e, "min", [p], [st], [0.0], act, od[:-8])
     with pytest.raises(ValueError, match="1 bests"):
         TER.ell_level_reduce(e, "min", [p, p], [st, st], [0.0, 0.0], act, od)
+
+
+# ---------------------------------------------------------------------------
+# Chunked, checkpointed and warm-started fixpoints on the card
+# ---------------------------------------------------------------------------
+
+_CHUNKED = {"BFS": ("auto", 2), "WPR push": ("push", 10)}
+
+
+def _chunk_query(name, g, **kw):
+    """``ops.iterate_cuda`` for BFS depth (direction switch) or weighted
+    PageRank (push−), with the three sweep kernels' launches it made."""
+    dk = (TU.handwritten_bfs_depth(0) if name == "BFS"
+          else TSy.weighted_pagerank_kernels(g.n))
+    comp = TI.CompRuntime(0, dk.rop, TI.DTYPES[dk.dtype], dk.p_fn,
+                          dk.init_fn, dk.source, dk.e_fn, p_expr=dk.p_expr)
+    TER.reset_launches()
+    r = TO.iterate_cuda(g, [comp], [Prim(dk.rop, 0)], max_iter=dk.max_iter,
+                        tol=dk.tol, direction=_CHUNKED[name][0], **kw)
+    torch.cuda.synchronize()
+    return r, {k: TER.LAUNCHES[k] for k in ("pull", "push", "resolve")}
+
+
+def _same_run(a, b):
+    assert _counters(a) == _counters(b)
+    assert torch.equal(_bits(a.state[0]), _bits(b.state[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_CHUNKED))
+def test_chunked_matches_monolithic_on_card(cuda_device, name, tmp_path):
+    g = TS.rmat_graph(400, 3200, seed=11, device=cuda_device)
+    mono, mono_l = _chunk_query(name, g)
+    chunked, chunked_l = _chunk_query(name, g,
+                                      checkpoint_every=_CHUNKED[name][1],
+                                      ckpt_dir=str(tmp_path))
+    assert mono.iterations > _CHUNKED[name][1]
+    _same_run(mono, chunked)
+    assert mono_l == chunked_l and sum(mono_l.values()) > 0
+    assert chunked.state[0].device.type == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_CHUNKED))
+def test_kill_and_resume_on_card(cuda_device, name, tmp_path, monkeypatch):
+    """A run killed after its second chunk and resumed from the snapshot
+    ends on the uninterrupted run's bits and counters, its launches and
+    the killed run's summing to the uninterrupted run's; the restored
+    carry's tensors lie on the card."""
+    from repro_torch.checkpoint.fixpoint import FixpointCheckpointer
+
+    class Kill(Exception):
+        pass
+
+    every = _CHUNKED[name][1]
+    g = TS.rmat_graph(400, 3200, seed=11, device=cuda_device)
+    mono, mono_l = _chunk_query(name, g)
+
+    def killer(k):
+        if k >= 2 * every:
+            raise Kill()
+
+    with pytest.raises(Kill):
+        _chunk_query(name, g, checkpoint_every=every, ckpt_dir=str(tmp_path),
+                     fault_hook=killer)
+    killed_l = dict(TER.LAUNCHES)
+    restored = []
+    real = FixpointCheckpointer.restore
+
+    def restore(self, carry_like):
+        carry = real(self, carry_like)
+        restored.append(carry)
+        return carry
+
+    monkeypatch.setattr(FixpointCheckpointer, "restore", restore)
+    resumed, resumed_l = _chunk_query(name, g, checkpoint_every=every,
+                                      ckpt_dir=str(tmp_path), resume=True)
+    _same_run(mono, resumed)
+    assert {k: killed_l[k] + resumed_l[k] for k in mono_l} == mono_l
+    (carry,) = restored           # k and pushes are host counters
+    assert int(carry[2]) == 2 * every
+    on_card = list(carry[0]) + [carry[1], carry[3], *carry[5:]]
+    assert all(t.device.type == "cuda" for t in on_card)
+
+
+@pytest.mark.gpu
+def test_warm_start_on_card(cuda_device):
+    g = TS.rmat_graph(400, 3200, seed=11, device=cuda_device)
+    prog = TF.fuse(TU.ALL_SPECS["SSSP"]())
+    cold, state = TE.run_program(g, prog, engine="cuda", return_state=True)
+    assert state[0].device.type == "cuda" and cold.stats.iterations > 1
+    warm = TE.run_program(g, prog, engine="cuda", init_state=state)
+    assert warm.stats.iterations == 1
+    assert torch.equal(_bits(cold.value), _bits(warm.value))
+    wd = TU.handwritten_sssp(0)
+    direct = TE.run_direct(g, wd, engine="cuda",
+                           init_state=[s.cpu().numpy() for s in state])
+    assert direct.stats.iterations == 1
+    assert torch.equal(_bits(direct.value), _bits(cold.value))
