@@ -24,7 +24,13 @@ libraries at once, into ``build/repro_torch/``), and then
    kernel must move, counting of the per-edge inputs only those the
    round's P reads, and of the candidates only those of the tiles that
    run), and the derived-activity pull beside the parent's pull step (the
-   torch tile activity, then the sweep);
+   torch tile activity, then the sweep).  Then each kernel's batched launch,
+   8 query slots (each with its own frontier and states) over the shared
+   layouts, for BFS and weighted PageRank at densities 0.05 and 1.0 on both
+   graphs: every slot bitwise its solo plain version, from fresh and from
+   poisoned buffers (push on the tiles it runs), timed beside 8 solo
+   launches and its bound (the layout bytes of the tiles any slot runs and
+   the shared vectors once, each slot's own bytes once per slot);
 2. checks the RM-XS work counters against the reference's
    (BENCH_pallas.json) and a small query against the path oracle;
 3. drives the main path — ``engine.run_program`` / ``run_direct`` with
@@ -123,6 +129,21 @@ libraries at once, into ``build/repro_torch/``), and then
    ``CheckpointMismatchError``, with ``fallback=True`` too.  Each line
    gives the snapshot bytes, the median save ms per chunk, the restore ms
    and the warm walls of the chunked and the whole query.
+7. serves batched queries, 8 sources at a time (seeded, with out-degree
+   > 0), through ``run_program_batch`` and ``run_direct(sources=)`` with
+   the ``cuda`` engine: on the SCALE-16 graph BFS, SSSP, WSP and WP on
+   auto direction, SSSP with ``model="pull"`` and ``"push"``, NSP (the
+   pull− recompute with has-pred) and the handwritten SSSP; on the uniform
+   graph BFS.  Every slot must equal its solo ``cuda`` query bitwise (NaN
+   equal to NaN) with its six counters, and each sweep kernel, its launch
+   count set to 0 before the batch and read after, must have launched at
+   most once per batch iteration and fewer times than the solo queries.
+   Then SSSP is served in chunks of 2 iterations through ``return_state``
+   / ``init_state``, each retired slot taking the next of 12 sources with
+   a fresh ``batch_init_state`` row, every answer equal to its solo query.
+   Each line gives iterations per slot, launches per kernel, the batch's
+   first and warm walls beside the solo queries' summed walls, queries per
+   second, the peak device memory and the card's name and power limit.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -147,6 +168,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 KERNEL_SOURCE = "src/repro_torch/csrc/edge_sweep.cuh"
 MAIN_KERNELS = ("pull", "push", "resolve")
 SLEEP_CYCLES = 4_000_000           # ~2 ms at the H100's 1.98 GHz boost clock
+BATCH = 8                          # the reference service's max_batch
 POISON = 0x7fc0dead                # a NaN payload (as float32)
 REPLACES = {"pull": "src/repro/kernels/edge_reduce.py:165",
             "push": "src/repro/kernels/edge_reduce.py:367",
@@ -254,7 +276,7 @@ def main(argv) -> int:
     # kernels' and the fixed kernels' (bag, softmax, both flash kernels).
     # ------------------------------------------------------------------
     progs = {name: TF.fuse(TU.ALL_SPECS[name]())
-             for name in ("BFS", "SSSP", "WSP", "CC", "WP")}
+             for name in ("BFS", "SSSP", "WSP", "CC", "WP", "NSP")}
     progs["BFS depth"] = TF.fuse(TU.bfs_depth(0))
 
     def program_round(prog):
@@ -340,11 +362,12 @@ def main(argv) -> int:
 
     cases = []
 
-    def kernel_cases(label, g, rnames, reps, plain_reps):
+    def kernel_cases(label, g, rnames, reps, plain_reps, batched=False):
         """Each kernel against its plain version on ``g``'s layouts, for
         the rounds ``rnames`` at frontier densities 0.05 and 1.0: bitwise
         equality, CUDA-event times and the byte bound; then each case once
-        more from a poisoned push buffer."""
+        more from a poisoned push buffer.  ``batched``: each kernel's
+        batched launch (``batched_kernel_case``)."""
         ein = TS.blocked_ell_cached(g, direction="in")
         eout = TS.blocked_ell_cached(g, direction="out")
         res = TS.push_resolution_cached(g)
@@ -359,11 +382,13 @@ def main(argv) -> int:
                     + torch.div(res.in2out - src * eout.width, ER.BLOCK_E,
                                 rounding_mode="floor")).reshape(-1)
         del src
+        make, into = ((batched_kernel_case, batch_cases) if batched
+                      else (kernel_case, cases))
         for rname in rnames:
             for density in (0.05, 1.0):
-                cases.append(kernel_case(label, g, ein, eout, res, out_tile,
-                                         outdeg, wdeg, rname, density, reps,
-                                         plain_reps))
+                into.append(make(label, g, ein, eout, res, out_tile, outdeg,
+                                 wdeg, rname, density, reps, plain_reps))
+                torch.cuda.empty_cache()
 
     def slots_of(tile_act):
         """[n_i, n_j] tile activity → [n_pad, width] bool per slot."""
@@ -559,6 +584,202 @@ def main(argv) -> int:
         log("kernel case " + json.dumps(case))
         return case
 
+    batch_cases = []
+
+    def batched_kernel_case(label, g, ein, eout, res, out_tile, outdeg, wdeg,
+                            rname, density, reps, plain_reps):
+        """One kernel case's batched launches (BATCH query slots over the
+        shared layouts) against the solo plain version per slot: bitwise,
+        from fresh and from poisoned buffers; timed beside BATCH solo
+        launches and the plain version (the solo plain version per slot in
+        turn, the batched plain version without its final stack)."""
+        rnd = rounds[rname]
+        n_pad, nb = ein.n_pad, BATCH
+        rng = np.random.default_rng(2000 + int(density * 100))
+        act_np = (rng.random((nb, n_pad)) < density).astype(np.int32)
+        act_np[:, g.n:] = 0
+        active = torch.from_numpy(act_np).to(dev)
+        st = []
+        for dt, ident in zip(rnd.dtypes, rnd.idents):
+            if dt == torch.float32:
+                v = rng.uniform(0.5, 9.0, (nb, n_pad)).astype(np.float32)
+            else:
+                v = rng.integers(0, 50, (nb, n_pad)).astype(np.int32)
+            v[rng.random((nb, n_pad)) < 0.25] = ident
+            st.append(torch.from_numpy(v).to(dev))
+        t_static = ein.tiles_static
+        t_in = ER.tile_activity(ein.nbrs, ein.mask, ein.tile_nnz, active)
+        t_out = ER.tile_activity_push(eout.tile_nnz, active)
+        t_res = ER.resolution_tile_activity(res.contrib, t_out, res.tile_nnz)
+        hp_main = any(op in ("sum", "prod") for spec in rnd.plan_specs
+                      for _pos, op in spec)
+        nv = float(g.n)
+        lay_in = (ein.nbrs, ein.weight, ein.capacity, ein.mask)
+        lay_out = (eout.nbrs, eout.weight, eout.capacity, eout.mask)
+
+        def solo_args(s):
+            """Slot s's own frontier, activities and states."""
+            return (active[s], [x[s] for x in st], t_in[s], t_out[s],
+                    t_res[s])
+
+        # one launch each, the pull outputs and the push candidates first
+        # into fresh buffers, then into buffers poisoned with a NaN payload
+        k_front, k_act = ER.pull_sweep_frontier(
+            rnd, t_static, *lay_in, active, outdeg, wdeg, st, nv, True)
+        k_pull = ER.pull_sweep(rnd, t_in, *lay_in, active, outdeg, wdeg, st,
+                               nv, True)
+        k_push = ER.push_sweep(rnd, t_out, *lay_out, active, outdeg, wdeg,
+                               st, nv)
+        res_kw = dict(push_tile_act=t_out, width_out=eout.width, states=st,
+                      need_hp=True)
+        k_res = ER.resolve_sweep(rnd, t_res, res.valid, res.in2out, k_push,
+                                 **res_kw)
+        torch.cuda.synchronize()
+        q_front = ER.pull_sweep_frontier(
+            rnd, t_static, *lay_in, active, outdeg, wdeg, st, nv, True,
+            out=poisoned_like([*k_front, k_act]))
+        q_pull = ER.pull_sweep(rnd, t_in, *lay_in, active, outdeg, wdeg, st,
+                               nv, True, out=poisoned_like(k_pull))
+        errs = {"pull": 0.0, "pull_given": 0.0, "push": 0.0, "resolve": 0.0}
+        for s in range(nb):
+            a_s, st_s, tin_s, tout_s, tres_s = solo_args(s)
+            p_pull = ER._pull_plain(rnd, tin_s, *lay_in, a_s, outdeg, wdeg,
+                                    st_s, nv, True)
+            compare("batched pull derived activity", rname, label, density,
+                    [k_act[s], q_front[1][s]], [tin_s, tin_s])
+            errs["pull"] = max(errs["pull"], compare(
+                "batched pull (derived activity)", rname, label, density,
+                [o[s] for o in k_front + q_front[0]], p_pull + p_pull))
+            errs["pull_given"] = max(errs["pull_given"], compare(
+                "batched pull (given activity)", rname, label, density,
+                [o[s] for o in k_pull + q_pull], p_pull + p_pull))
+            del p_pull
+            p_push = ER._push_plain(rnd, tout_s, *lay_out, a_s, outdeg, wdeg,
+                                    st_s, nv)
+            errs["push"] = max(errs["push"], compare(
+                "batched push", rname, label, density, [c[s] for c in k_push],
+                p_push, slots_of(tout_s)))
+            p_res = ER._resolve_plain(rnd, tres_s, res.valid, res.in2out,
+                                      p_push, tout_s, eout.width, st_s, True)
+            errs["resolve"] = max(errs["resolve"], compare(
+                "batched resolve", rname, label, density,
+                [o[s] for o in k_res], p_res))
+            del p_push, p_res
+        # the poisoned repeat of push and resolve, into the same buffers
+        for c in k_push:
+            c.view(torch.int32).fill_(POISON)
+        k_push = ER.push_sweep(rnd, t_out, *lay_out, active, outdeg, wdeg,
+                               st, nv, out=k_push)
+        q_res = ER.resolve_sweep(rnd, t_res, res.valid, res.in2out, k_push,
+                                 **res_kw)
+        torch.cuda.synchronize()
+        for s in range(nb):
+            a_s, st_s, tin_s, tout_s, tres_s = solo_args(s)
+            p_push = ER._push_plain(rnd, tout_s, *lay_out, a_s, outdeg, wdeg,
+                                    st_s, nv)
+            compare("batched push (poisoned)", rname, label, density,
+                    [c[s] for c in k_push], p_push, slots_of(tout_s))
+            compare("batched resolve (poisoned)", rname, label, density,
+                    [o[s] for o in q_res], [o[s] for o in k_res])
+            del p_push
+        del q_front, q_pull, q_res, k_front, k_act, k_pull, k_res
+        # The least bytes of the batch: the layout bytes of the tiles that
+        # run in any slot and the shared vectors once, each slot's own
+        # activity words, frontier, states and outputs once per slot.  The
+        # timed launches take has-pred as the main path does for the round
+        # (the pull− and push− of a non-idempotent round), so the pull's
+        # has-pred cells are charged only then.
+        nc, nl = len(rnd.dtypes), rnd.n_levels
+        reads = frozenset().union(*map(expr_vars, rnd.p_exprs))
+
+        def slot_bytes(*names):
+            return 1 + 4 * sum(nm in reads for nm in names)
+        slot = ER.BLOCK_V * ER.BLOCK_E
+        deg = n_pad * 4 * (("outdeg" in reads) + ("wdeg" in reads))
+        own = n_pad * 4 * (1 + nc) * nb          # frontier + states per slot
+        union = {"in": int((t_in.sum(0) > 0).sum()),
+                 "out": int((t_out.sum(0) > 0).sum()),
+                 "res": int((t_res.sum(0) > 0).sum())}
+        n_j = ein.width // ER.BLOCK_E
+        n_j_res = res.width // ER.BLOCK_E
+        cells = n_pad * n_j * 4 * (nl + nc * hp_main) * nb
+        tiles_out = int(t_out.sum())
+        gathered = sum(int((res.valid.reshape(-1) & (
+            t_out[s].reshape(-1).index_select(0, out_tile) != 0)).sum())
+            for s in range(nb))
+        bytes_ = {
+            "pull": t_static.numel() * 4 + int(t_static.sum()) * slot * 5
+            + union["in"] * slot * (slot_bytes("w", "c") - 1) + deg + own
+            + cells + t_in.numel() * 4,
+            "pull_given": t_in.numel() * 4 + union["in"] * slot * (
+                4 + slot_bytes("w", "c")) + deg + own + cells,
+            "push": t_out.numel() * 4
+            + union["out"] * slot * slot_bytes("edst", "w", "c")
+            + tiles_out * slot * 4 * nc + deg + own,
+            "resolve": t_res.numel() * 4 + union["res"] * slot * 5
+            + tiles_out * 4 + gathered * 4 * nc
+            + n_pad * n_j_res * 4 * nl * nb
+            + hp_main * (n_pad * 4 * nc * nb + n_pad * n_j_res * 4 * nc * nb),
+        }
+        timed_kw = dict(res_kw, need_hp=hp_main)
+        case = {"graph": label, "round": rname, "density": density,
+                "slots": nb, "p_reads": sorted(reads),
+                "poisoned_repeat": "bitwise",
+                "timed_with_haspred": hp_main,
+                "tiles_union": union, "tiles_summed": {
+                    "pull": int(t_in.sum()), "push": tiles_out,
+                    "resolve": int(t_res.sum())},
+                "candidates_gathered": gathered}
+
+        def solo_each(fn):
+            def run():
+                for s in range(nb):
+                    fn(*solo_args(s), s)
+            return run
+
+        for kname, fn, solo, plain in (
+                ("pull", lambda: ER.pull_sweep_frontier(
+                    rnd, t_static, *lay_in, active, outdeg, wdeg, st, nv,
+                    hp_main),
+                 solo_each(lambda a, x, ti, to, tr, s: ER.pull_sweep_frontier(
+                     rnd, t_static, *lay_in, a, outdeg, wdeg, x, nv,
+                     hp_main)),
+                 solo_each(lambda a, x, ti, to, tr, s: ER._pull_plain(
+                     rnd, ER.tile_activity(ein.nbrs, ein.mask, ein.tile_nnz,
+                                           a),
+                     *lay_in, a, outdeg, wdeg, x, nv, hp_main))),
+                ("pull_given", lambda: ER.pull_sweep(
+                    rnd, t_in, *lay_in, active, outdeg, wdeg, st, nv,
+                    hp_main),
+                 solo_each(lambda a, x, ti, to, tr, s: ER.pull_sweep(
+                     rnd, ti, *lay_in, a, outdeg, wdeg, x, nv, hp_main)),
+                 solo_each(lambda a, x, ti, to, tr, s: ER._pull_plain(
+                     rnd, ti, *lay_in, a, outdeg, wdeg, x, nv, hp_main))),
+                ("push", lambda: ER.push_sweep(
+                    rnd, t_out, *lay_out, active, outdeg, wdeg, st, nv,
+                    out=k_push),
+                 solo_each(lambda a, x, ti, to, tr, s: ER.push_sweep(
+                     rnd, to, *lay_out, a, outdeg, wdeg, x, nv,
+                     out=[c[s] for c in k_push])),
+                 solo_each(lambda a, x, ti, to, tr, s: ER._push_plain(
+                     rnd, to, *lay_out, a, outdeg, wdeg, x, nv))),
+                ("resolve", lambda: ER.resolve_sweep(
+                    rnd, t_res, res.valid, res.in2out, k_push, **timed_kw),
+                 solo_each(lambda a, x, ti, to, tr, s: ER.resolve_sweep(
+                     rnd, tr, res.valid, res.in2out, [c[s] for c in k_push],
+                     to, eout.width, x, hp_main)),
+                 solo_each(lambda a, x, ti, to, tr, s: ER._resolve_plain(
+                     rnd, tr, res.valid, res.in2out, [c[s] for c in k_push],
+                     to, eout.width, x, hp_main)))):
+            case[kname] = {
+                "ms": time_ms(fn, reps), "solo_ms": time_ms(solo, reps),
+                "plain_ms": time_ms(plain, plain_reps),
+                "bound_ms": bytes_[kname] / HBM_BYTES_PER_S * 1e3,
+                "bytes": bytes_[kname], "max_abs_err": errs[kname]}
+        del k_push
+        log("batched kernel case " + json.dumps(case))
+        return case
+
     # ------------------------------------------------------------------
     # Phase 4 helpers: the four kernels off the graph main path.
     # ------------------------------------------------------------------
@@ -741,6 +962,9 @@ def main(argv) -> int:
     del ein, eout
     kernel_cases("rmat16", g16, ("BFS", "WSP", "WPR"), 20, 3)
     record["kernel_cases"] = cases
+    torch.cuda.empty_cache()
+    kernel_cases("rmat16", g16, ("BFS", "WPR"), 10, 1, batched=True)
+    record["batch_cases"] = batch_cases
     level_cases("rmat16", g16, ("int n+1", "float n+w", "lex level 0",
                                 "lex level 1", "nonbot"))
     softmax_case("rmat16 in-layout", g16)
@@ -1194,7 +1418,8 @@ def main(argv) -> int:
         gd = TS.rmat_graph(nd, ed, seed=16, device=dev)
         torch.cuda.synchronize()
         # the run's peak so far, kept for the record's peak_mem_gb
-        record["peak_before_dense_bytes"] = torch.cuda.max_memory_allocated()
+        record["peak_before_dense_bytes"] = max(
+            torch.cuda.max_memory_allocated(), *batch_peaks)
         torch.cuda.reset_peak_memory_stats()
         for label, make, exact in (
                 ("BFS", lambda eng: TE.run_program(gd, progs["BFS"],
@@ -1440,6 +1665,183 @@ def main(argv) -> int:
             phase6_warm(g, "rmat16")
             phase6_mismatch(g, ckpt_root / "BFS_rmat16" / "chunked")
 
+    # ------------------------------------------------------------------
+    # Phase 7: batched queries, BATCH sources at a time, through
+    # run_program_batch and run_direct(sources=), while the graphs they
+    # need live.  The three sweep kernels' launch counts are set to 0 just
+    # before each batch and read just after (none counts for the main
+    # path); every slot is held bitwise, with its six counters, against its
+    # solo cuda query.
+    # ------------------------------------------------------------------
+    phase7_rows = []
+    batch_peaks = []           # the run's peaks before each batch's reset
+
+    def reset_peak():
+        batch_peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    def batch_sources(g, seed, count=BATCH):
+        """``count`` distinct sources with out-degree > 0, seeded."""
+        rng = np.random.default_rng(seed)
+        cand = np.flatnonzero(g.out_deg.cpu().numpy() > 0)
+        return [int(s) for s in rng.choice(cand, count, replace=False)]
+
+    def phase7_case(label, g, batch_fn, solo_fn, srcs):
+        """One batch against its solo queries: bits, counters, launches (at
+        most one per kernel per batch iteration, fewer than the solo
+        queries'), the first and warm walls and the peak device memory."""
+        torch.cuda.empty_cache()
+        reset_peak()
+        outs, wall, launched = counted(lambda: batch_fn(srcs))
+        peak = torch.cuda.max_memory_allocated()
+        solos, solo_wall, solo_l = counted(
+            lambda: [solo_fn(s) for s in srcs])
+        warm = counted(lambda: batch_fn(srcs))[1]
+        solo_warm = counted(lambda: [solo_fn(s) for s in srcs])[1]
+        for r in outs + solos:
+            on_cuda(r, f"phase 7 {label}")
+        iters = [o.stats.iterations for o in outs]
+        same = all(torch.equal(bits(o.value), bits(q.value))
+                   and stat_tuple(o) == stat_tuple(q)
+                   for o, q in zip(outs, solos))
+        launches_ok = all(
+            launched[k] <= max(iters)
+            and (solo_l[k] == 0 or 0 < launched[k] < solo_l[k])
+            for k in MAIN_KERNELS)
+        row = {"query": label, "n": g.n, "edges": g.num_edges,
+               "slots": len(srcs), "sources": srcs, "iterations": iters,
+               "push_iters": [o.stats.push_iters for o in outs],
+               "launches": launched, "solo_launches": solo_l,
+               "wall_ms": wall, "warm_wall_ms": warm,
+               "solo_wall_ms": solo_wall, "solo_warm_wall_ms": solo_warm,
+               "queries_per_s": len(srcs) / warm * 1e3,
+               "solo_queries_per_s": len(srcs) / solo_warm * 1e3,
+               "peak_bytes": peak, "card": card,
+               "match": "bitwise" if same else "MISMATCH"}
+        log("phase 7 " + json.dumps(row))
+        phase7_rows.append(row)
+        if not same:
+            raise RuntimeError(f"phase 7 {label}: a slot differs from its "
+                               "solo query")
+        if not launches_ok:
+            raise RuntimeError(f"phase 7 {label}: launches {launched} in "
+                               f"{max(iters)} iterations, solo {solo_l}")
+
+    def phase7_continuous(label, g):
+        """SSSP served in chunks of 2 iterations through return_state /
+        init_state: each converged slot retires, and the next source takes
+        it with a fresh batch_init_state row; every answer must equal its
+        solo query's."""
+        prog = progs["SSSP"]
+        order = batch_sources(g, 78, BATCH + BATCH // 2)
+        srcs, queue = order[:BATCH], order[BATCH:]
+        answers, chunks = {}, 0
+        ER.reset_launches()
+        reset_peak()
+        t0 = time.perf_counter()
+        outs, state = TE.run_program_batch(g, prog, srcs, max_iter=2,
+                                           on_nonconverge="ignore",
+                                           return_state=True)
+        while len(answers) < len(order):
+            chunks += 1
+            rows = list(state)
+            for b, o in enumerate(outs):
+                on_cuda(o, f"phase 7 {label}")
+                if o.stats.converged and srcs[b] not in answers:
+                    answers[srcs[b]] = o.value.clone()
+                    if queue:
+                        srcs[b] = queue.pop(0)
+                        fresh = TE.batch_init_state(g, prog, [srcs[b]])
+                        for r, f in zip(rows, fresh):
+                            r[b] = f[0]
+            if len(answers) == len(order) or chunks > 500:
+                break
+            outs, state = TE.run_program_batch(
+                g, prog, srcs, max_iter=2, on_nonconverge="ignore",
+                init_state=tuple(rows), return_state=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launched = {k: ER.LAUNCHES[k] for k in MAIN_KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        same = sorted(answers) == sorted(order) and all(
+            torch.equal(bits(v), bits(on_cuda(TE.run_program(
+                g, prog, engine="cuda", source=s)).value))
+            for s, v in answers.items())
+        row = {"query": label, "n": g.n, "edges": g.num_edges,
+               "slots": BATCH, "queries": len(order), "chunks": chunks,
+               "max_iter": 2, "launches": launched, "wall_ms": wall,
+               "queries_per_s": len(order) / wall * 1e3,
+               "peak_bytes": peak, "card": card,
+               "match": "bitwise" if same else "MISMATCH"}
+        log("phase 7 " + json.dumps(row))
+        phase7_rows.append(row)
+        if not same:
+            raise RuntimeError(f"phase 7 {label}: a served answer differs "
+                               "from its solo query")
+
+    def profile_batch(label, fn):
+        """One warm batch under torch.profiler: the device's busy time
+        against the wall and the top device kernels, by which a batch's
+        time is attributed (kernel events only; the table goes to the
+        details directory)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            outs = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        for r in outs:
+            on_cuda(r, label)
+        ka = prof.key_averages()
+        kern = [e for e in ka if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("grafs::")]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+        summary = {"wall_ms": wall, "device_busy_ms": busy,
+                   "idle_share": max(0.0, 1.0 - busy / wall),
+                   "iterations": max(r.stats.iterations for r in outs),
+                   "top_device_ms": {e.key[:60]: [e.count,
+                                                  e.self_device_time_total
+                                                  / 1e3] for e in top},
+                   "card": card}
+        profiles[label] = summary
+        log(f"profile {label}: " + json.dumps(summary))
+        try:
+            out_dir.mkdir(exist_ok=True)
+            (out_dir / f"profile_{label.replace(' ', '_')}.txt").write_text(
+                ka.table(sort_by="self_device_time_total", row_limit=30))
+        except OSError:
+            pass
+
+    def phase7_rmat16(g):
+        srcs = batch_sources(g, 7)
+        for name, model in (("BFS", None), ("SSSP", None), ("WSP", None),
+                            ("WP", None), ("SSSP", "pull"),
+                            ("SSSP", "push"), ("NSP", None)):
+            phase7_case(
+                f"{name}{'' if model is None else ' ' + model} rmat16", g,
+                lambda ss, name=name, model=model: TE.run_program_batch(
+                    g, progs[name], ss, model=model),
+                lambda s, name=name, model=model: TE.run_program(
+                    g, progs[name], engine="cuda", model=model, source=s),
+                srcs)
+        phase7_case("handwritten SSSP run_direct rmat16", g,
+                    lambda ss: TE.run_direct(g, handwritten["SSSP"],
+                                             engine="cuda", sources=ss),
+                    lambda s: TE.run_direct(g, handwritten["SSSP"],
+                                            engine="cuda", source=s),
+                    srcs)
+        phase7_continuous("continuous SSSP rmat16", g)
+        for name, model in (("BFS", None), ("SSSP", "pull"),
+                            ("SSSP", "push")):
+            profile_batch(
+                f"batch {name}{'' if model is None else ' ' + model} rmat16",
+                lambda name=name, model=model: TE.run_program_batch(
+                    g, progs[name], srcs, model=model))
+
     setup("rmat16", g16)
     ER.reset_launches()
     for name in ("BFS", "SSSP", "WSP"):
@@ -1477,6 +1879,9 @@ def main(argv) -> int:
     t6 = time.perf_counter()
     phase6_rmat16(g16)
     phase6_s = time.perf_counter() - t6
+    t7 = time.perf_counter()
+    phase7_rmat16(g16)
+    phase7_s = time.perf_counter() - t7
     gu16 = TS.undirected(g16)
     TE.clear_graph_caches(g16)
     torch.cuda.empty_cache()
@@ -1501,6 +1906,8 @@ def main(argv) -> int:
     # the kernels against their plain versions at this graph's shapes,
     # outside the main path's launch counts
     kernel_cases("uniform21", gu, ("BFS", "PR", "WPR"), 10, 1)
+    torch.cuda.empty_cache()
+    kernel_cases("uniform21", gu, ("BFS", "WPR"), 5, 1, batched=True)
     torch.cuda.empty_cache()
     ER.reset_launches()
     run("BFS uniform21", gu,
@@ -1533,6 +1940,18 @@ def main(argv) -> int:
     log(f"phase 6: {phase6_s:.1f} s")
     record["phase6"] = phase6_rows
     record["phase6_s"] = phase6_s
+    t7 = time.perf_counter()
+    phase7_case("BFS uniform21", gu,
+                lambda ss: TE.run_program_batch(gu, progs["BFS"], ss),
+                lambda s: TE.run_program(gu, progs["BFS"], engine="cuda",
+                                         source=s),
+                batch_sources(gu, 21))
+    profile_batch("batch BFS uniform21", lambda: TE.run_program_batch(
+        gu, progs["BFS"], batch_sources(gu, 21)))
+    phase7_s += time.perf_counter() - t7
+    log(f"phase 7: {phase7_s:.1f} s")
+    record["phase7"] = phase7_rows
+    record["phase7_s"] = phase7_s
     level_cases("uniform21", gu, ("int n+1",))
     softmax_case("uniform21 in-layout", gu)
     del gu
@@ -1705,6 +2124,23 @@ def main(argv) -> int:
     kernels[0].update(mode="derived activity", given_ms=given["ms"],
                       given_bound_ms=given["bound_ms"],
                       pair_ms=ref_case["pull"]["pair_ms"])
+    # beside each, its batched launch: BATCH slots of the same round and
+    # density in one launch, against BATCH solo launches
+    batch_ref = [c for c in batch_cases if c["graph"] == "rmat16"
+                 and c["round"] == "WPR" and c["density"] == 1.0][0]
+    for row in kernels:
+        kname = row["name"].removesuffix("_kernel")
+        c = batch_ref[kname]
+        row["batched"] = {
+            "slots": BATCH, "ms": c["ms"], "solo_ms": c["solo_ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "max_abs_err": c["max_abs_err"],
+            "launches": sum(r["launches"][kname] for r in phase7_rows)}
+    kernels[0]["batched"].update(
+        given_ms=batch_ref["pull_given"]["ms"],
+        given_solo_ms=batch_ref["pull_given"]["solo_ms"],
+        given_bound_ms=batch_ref["pull_given"]["bound_ms"],
+        timed_with_haspred=batch_ref["timed_with_haspred"])
     for kname, label in (("level", "rmat16 float n+w"),
                          ("softmax", "rmat16 in-layout"),
                          ("bag", "float32 table K=1 sum"),

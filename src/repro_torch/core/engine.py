@@ -12,6 +12,13 @@ The port's counterpart of ``repro.core.engine``: runs a ``FusedProgram``
                 (``kernels.ops.iterate_cuda``; ``model`` forces "pull" /
                 "push", the default picks per iteration)
 
+``run_program_batch`` and ``run_direct(sources=…)`` serve B queries of
+one program or kernel set together: on ``cuda`` one batched fixpoint with
+one launch per sweep per iteration for the whole batch
+(``kernels.ops.iterate_cuda_batch``), elsewhere B solo queries.
+``batchable_program`` and ``batch_init_state`` are the continuous-batching
+hooks of a scheduler that carries a batch's state between chunks.
+
 ``fallback=True`` degrades an infrastructure failure down
 ``guard.FALLBACK_CHAIN`` (cuda → adaptive) after a bounded same-engine
 retry (``ft_config`` sets the budget), recording each step in
@@ -32,8 +39,9 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import conditions as _conditions
@@ -54,7 +62,6 @@ _LATER = {
     "mesh": "the sharded engines (ROADMAP Queue 1, item 11)",
     "axes": "the sharded engines (ROADMAP Queue 1, item 11)",
     "shard_strategy": "the sharded engines (ROADMAP Queue 1, item 11)",
-    "sources": "batched queries (ROADMAP Queue 1, item 7)",
 }
 _LATER_DEFAULTS = {"axes": ("data",)}
 
@@ -177,12 +184,18 @@ def _prepare(g, device):
     return dev
 
 
-def _validate_inputs(g, source=None):
+def _validate_inputs(g, source=None, sources=None):
+    """Graph structural validation and the range of the query source(s);
+    returns the cached ``GraphCheck`` for the precondition probe."""
     from repro_torch.graph import structure
     chk = structure.validate_graph(g)
-    if source is not None and not 0 <= int(source) < g.n:
-        raise guard.GraphValidationError(
-            f"query source {int(source)} out of range [0, {g.n})")
+    probe = [] if source is None else [source]
+    if sources is not None:
+        probe.extend(np.asarray(sources).ravel().tolist())
+    for s in probe:
+        if not 0 <= int(s) < g.n:
+            raise guard.GraphValidationError(
+                f"query source {int(s)} out of range [0, {g.n})")
     return chk
 
 
@@ -203,6 +216,16 @@ def _check_preconditions(chk, comps, plans):
             "terminate; fix the graph or run with validate=False",
             condition=v["condition"], component=v["component"],
             detail=v["detail"])
+
+
+def _require_single_round(prog, what="init_state/return_state") -> None:
+    """The warm-start hooks need one iteration round and no LetRound
+    chain."""
+    iter_rounds = [r for _, r in prog.rounds if r.leaves]
+    if len(prog.rounds) != 1 or len(iter_rounds) != 1:
+        raise ValueError(
+            f"{what} needs a single-round program (one iteration round, no "
+            f"LetRound chain); got {len(prog.rounds)} rounds")
 
 
 def _check_outcome(res, max_iter_eff, on_nonconverge):
@@ -253,6 +276,34 @@ def _run(engine: str, plan: ExecutionPlan, g, comps, plans, max_iter, tol,
         return kops.iterate_cuda(g, comps, plans, max_iter=max_iter, tol=tol,
                                  sources=sources, plan=plan, **warm)
     raise ValueError(f"unknown engine {engine}")
+
+
+def _check_batch_outcomes(res, src_list, max_iter_eff, on_nonconverge):
+    """Per-query convergence outcomes of one batched round (per-slot
+    ``converged`` / ``diverged``), naming the offending query sources."""
+    if on_nonconverge == "ignore":
+        return
+    divg = np.asarray(res.diverged)
+    conv = np.asarray(res.converged)
+    if divg.any():
+        bad = [src_list[i] for i in np.flatnonzero(divg)]
+        raise guard.DivergenceError(
+            f"batched fixpoint diverged for query sources {bad}: the "
+            "NaN/Inf sentinel fired",
+            iterations=int(np.asarray(res.iterations).max()))
+    if not conv.all():
+        bad = np.flatnonzero(~conv)
+        acts = np.asarray(res.active_count)
+        iters = np.asarray(res.iterations)
+        msg = (f"batched fixpoint exhausted max_iter={max_iter_eff} for "
+               f"query sources {[src_list[i] for i in bad]} "
+               f"(active counts {[int(acts[i]) for i in bad]})")
+        if on_nonconverge == "warn":
+            warnings.warn(msg, RuntimeWarning, stacklevel=3)
+            return
+        raise guard.NonConvergenceError(
+            msg, iterations=int(iters.max()), max_iter=int(max_iter_eff),
+            active_count=int(acts[bad].sum()))
 
 
 def _dispatch_guarded(call, engine, fallback, ft_config):
@@ -382,12 +433,7 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
             raise ValueError(
                 "init_state/return_state warm-start hooks are a cuda-engine "
                 f"feature; got engine={plan.engine!r}")
-        iter_rounds = [r for _, r in prog.rounds if r.leaves]
-        if len(prog.rounds) != 1 or len(iter_rounds) != 1:
-            raise ValueError(
-                "init_state/return_state need a single-round program (one "
-                f"iteration round, no LetRound chain); got "
-                f"{len(prog.rounds)} rounds")
+        _require_single_round(prog)
     warm = dict(checkpoint_every=checkpoint_every, ckpt_dir=ckpt_dir,
                 resume=resume, init_state=init_state)
     chk = _validate_inputs(g, source=source) if plan.validate else None
@@ -428,9 +474,213 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
     return result
 
 
+def run_program_batch(g, prog: FusedProgram, sources: Sequence,
+                      engine: Optional[str] = None,
+                      model: Optional[str] = None,
+                      max_iter: Optional[int] = None, tol: float = 0.0,
+                      push_resolution: Optional[str] = None,
+                      switch_k="auto",
+                      validate: bool = True,
+                      on_nonconverge: str = "raise",
+                      fallback: bool = False, ft_config=None,
+                      init_state=None, return_state: bool = False,
+                      adaptive: bool = False,
+                      plan: Optional[ExecutionPlan] = None,
+                      explain: bool = False,
+                      device=None, **later):
+    """Serve B single-source queries of one program together.
+
+    ``sources`` is a [B] sequence of query sources; every sourced component
+    of every round is re-sourced per query.  On the cuda engine (the
+    default here) each iteration round runs as one batched fixpoint over
+    the shared blocked-ELL layout (``kernels.ops.iterate_cuda_batch``): one
+    launch of each sweep kernel per iteration for the whole batch, each
+    query converging in its own slot, each result bitwise the solo
+    ``run_program(..., source=s)`` query's with its counters.  Other
+    engines run the B queries one after the other (the plan's
+    ``batch_lane="sequential"``, recorded as a ``guard.batch_degradation``
+    event on every query's stats).
+
+    Returns a list of B ``ExecResult``s, each with its own stats
+    (``synth_ms`` is the round's shared synthesis cost, on each).
+
+    Guarded execution as in ``run_program``: the graph and every source
+    are validated up front, the termination preconditions per round, the
+    convergence outcomes per query; with ``fallback=True`` a recoverable
+    failure of the batched round (outside the kernel layer, whose faults
+    propagate) re-runs the batch query by query on ``adaptive``, one
+    ``FallbackEvent("cuda", "adaptive", …)`` on each query.
+
+    Continuous batching (cuda engine, single-round programs, no
+    fallback): ``init_state``, one per-component [B, n] array or tensor,
+    warm-starts every slot (an earlier chunk's carried state, with fresh
+    ``batch_init_state`` rows where new queries joined); ``return_state=
+    True`` returns ``(results, state)``, ``state`` the round's final
+    per-component [B, n] tensors on the graph's device.  Bound
+    ``max_iter`` to the chunk and read each query's ``stats.converged``
+    (under ``on_nonconverge="ignore"``) to retire or carry a slot."""
+    _reject_later(later)
+    _prepare(g, device)
+    src_arr = np.asarray(sources)
+    if src_arr.ndim != 1:
+        raise ValueError(
+            f"run_program_batch sources must be a [B] vector of query "
+            f"sources, got shape {src_arr.shape}; per-component [B, n_comps] "
+            "batching is the kernels-layer iterate_cuda_batch API")
+    if plan is None or explain:
+        planned = plan_execution(
+            g, prog, engine=engine, model=model, switch_k=switch_k,
+            push_resolution=push_resolution, batch=len(src_arr),
+            validate=validate, on_nonconverge=on_nonconverge,
+            fallback=fallback, adaptive=adaptive, default_engine="cuda",
+            explain=explain)
+        if explain:
+            return planned
+        plan = planned
+    if init_state is not None or return_state:
+        if plan.engine != "cuda":
+            raise ValueError("init_state/return_state are cuda-engine "
+                             f"continuous-batching hooks; got {plan.engine!r}")
+        if plan.fallback:
+            raise ValueError("init_state/return_state cannot degrade to the "
+                             "sequential fallback loop (a warm-started batch "
+                             "has no per-query equivalent there); run with "
+                             "fallback=False")
+        _require_single_round(prog)
+    chk = _validate_inputs(g, sources=src_arr) if plan.validate else None
+    max_iter_eff = max_iter if max_iter is not None else 2 * g.n + 4
+    src_list = [int(s) for s in src_arr]
+    n_q = len(src_list)
+    if plan.engine != "cuda":
+        return _each_solo(
+            lambda s: run_program(g, prog, max_iter=max_iter, tol=tol,
+                                  source=s, ft_config=ft_config, plan=plan,
+                                  device=device),
+            src_list, guard.batch_degradation(plan.engine, n_q))
+    from repro_torch.kernels import ops as kops
+    stats = [ExecStats(engine_used="cuda", plan=plan) for _ in range(n_q)]
+    named: list = [{} for _ in range(n_q)]
+    finals: list = [None] * n_q
+    state_out = None
+    for bind_name, round_ in prog.rounds:
+        envs = [dict(nm) for nm in named]
+        if round_.leaves:
+            synth, synth_ms = _synthesize_timed(round_)
+            comps, plans = _round_runtime(round_, synth)
+            _check_preconditions(chk, comps, plans)
+            try:
+                res = kops.iterate_cuda_batch(
+                    g, comps, plans, src_list, max_iter=max_iter, tol=tol,
+                    init_state=init_state, plan=plan)
+            except Exception as exc:
+                if not plan.fallback or not guard.recoverable(exc):
+                    raise
+                return _each_solo(lambda s: run_program(
+                    g, prog, engine="adaptive", max_iter=max_iter, tol=tol,
+                    source=s, validate=plan.validate,
+                    on_nonconverge=plan.on_nonconverge,
+                    fallback=plan.fallback, ft_config=ft_config,
+                    device=device), src_list, _batch_fallback(exc),
+                    engine="adaptive")
+            _check_batch_outcomes(res, src_list, max_iter_eff,
+                                  plan.on_nonconverge)
+            for b, st in enumerate(stats):
+                _accumulate_slot(st, res, b, synth_ms)
+                for leaf in round_.leaves:
+                    envs[b][leaf.name] = res.state[plan_output(leaf.plan)][b]
+            if return_state:
+                state_out = tuple(res.state)
+        for b in range(n_q):
+            out = _finish_round(g, round_, envs[b])
+            if bind_name is not None:
+                prefix = "$vec:" if round_.out_kind == "vertex" else "$scalar:"
+                named[b][prefix + bind_name] = out
+            finals[b] = out
+    for st in stats:
+        _plan.record_feedback(g, plan.kind, st)
+    results = [ExecResult(value=finals[b], named=named[b], stats=stats[b])
+               for b in range(n_q)]
+    if return_state:
+        return results, state_out
+    return results
+
+
+def _accumulate_slot(stats: ExecStats, res, b: int, synth_ms: float) -> None:
+    """``_accumulate`` for query slot ``b`` of a batched round."""
+    stats.rounds += 1
+    stats.iterations += res.iterations[b]
+    stats.edge_work += res.edge_work[b]
+    stats.synth_ms += synth_ms
+    stats.converged = stats.converged and bool(res.converged[b])
+    stats.push_iters += res.push_iters[b]
+    stats.pull_iters += res.pull_iters[b]
+    stats.resolve_work += res.resolve_work[b]
+    stats.gather_work += res.gather_work[b]
+
+
+def _batch_fallback(exc) -> guard.FallbackEvent:
+    """The event of a batched cuda round that failed recoverably and
+    re-runs query by query on adaptive."""
+    return guard.FallbackEvent("cuda", "adaptive",
+                               f"{type(exc).__name__}: {exc}")
+
+
+def _each_solo(solo, src_list, event: guard.FallbackEvent,
+               engine: Optional[str] = None) -> list:
+    """A batch served as one solo query per source (``solo(source)``),
+    ``event`` first in each query's fallbacks and, where the queries ran
+    on another engine than planned, ``engine`` as their engine used."""
+    ev = event.as_tuple()
+    outs = [solo(s) for s in src_list]
+    for o in outs:
+        o.stats.fallbacks = (ev,) + o.stats.fallbacks
+        if engine is not None:
+            o.stats.engine_used = engine
+    return outs
+
+
+def batchable_program(prog: FusedProgram) -> bool:
+    """True when a fused program fits the continuous-batching contract:
+    exactly one round, with an iteration (leaves), every plan idempotent
+    (monotone (+) rounds, whose unique fixpoint makes a chunked warm
+    resume bitwise safe; (−) recompute rounds depend on the iteration
+    count and run whole), and every component sourced (so a per-slot
+    source re-sources the whole round)."""
+    if len(prog.rounds) != 1:
+        return False
+    _, round_ = prog.rounds[0]
+    if not round_.leaves:
+        return False
+    if not all(iterate.plan_idempotent(leaf.plan) for leaf in round_.leaves):
+        return False
+    return all(c.source is not None for c in round_.components)
+
+
+def batch_init_state(g, prog: FusedProgram, sources: Sequence) -> tuple:
+    """Fresh per-component [B, n] initial state for a batch of query
+    sources of a single-round program, on the graph's device: the rows a
+    continuous-batching scheduler splices into its carried state when new
+    queries take over retired slots (``run_program_batch(init_state=…)``).
+    Row b is exactly the C1/C2 initial state of a solo ``source=
+    sources[b]`` query.  A program with a LetRound chain is refused, as
+    ``run_program_batch(init_state=…)`` refuses it (the reference builds
+    rows for it that its batch then rejects)."""
+    _require_single_round(prog, "batch_init_state")
+    round_ = prog.rounds[0][1]
+    synth, _ = _synthesize_timed(round_)
+    comps, _plans = _round_runtime(round_, synth)
+    rows = [iterate._init_state(comps, g.n,
+                                _source_overrides(round_, int(s)),
+                                device=g.device)
+            for s in sources]
+    return tuple(torch.stack([r[i] for r in rows])
+                 for i in range(len(comps)))
+
+
 def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
                model: Optional[str] = None,
                source: Optional[int] = None,
+               sources: Optional[Sequence] = None,
                push_resolution: Optional[str] = None,
                switch_k="auto",
                validate: bool = True,
@@ -450,7 +700,15 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
     recompute.  The cuda engine needs ``dk.p_expr`` (the kernel is
     generated from it).  ``fallback``, ``ft_config``, ``checkpoint_every``,
     ``ckpt_dir``, ``resume`` and ``init_state`` act as in ``run_program``;
-    with ``init_state`` the default engine is cuda."""
+    with ``init_state`` the default engine is cuda.
+
+    ``source`` overrides ``dk.source`` for one query; ``sources`` runs a
+    [B] batch of queries and returns a list of per-query ``ExecResult``s:
+    one batched fixpoint on the cuda engine (``ops.iterate_cuda_batch``,
+    each result bitwise its solo query's), B solo queries elsewhere with
+    the ``guard.batch_degradation`` event.  Both need a source-generic
+    kernel set (``dk.source`` not None); a batch is neither chunked nor
+    warm-started."""
     from repro_torch.core.fusion import Prim
 
     _reject_later(later)
@@ -458,19 +716,24 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
     if plan is None or explain:
         planned = plan_execution(
             g, dk, engine=engine, model=model, switch_k=switch_k,
-            push_resolution=push_resolution, validate=validate,
-            on_nonconverge=on_nonconverge, fallback=fallback,
-            divergence_sentinel=divergence_sentinel, adaptive=adaptive,
+            push_resolution=push_resolution,
+            batch=None if sources is None else len(sources),
+            validate=validate, on_nonconverge=on_nonconverge,
+            fallback=fallback, divergence_sentinel=divergence_sentinel,
+            adaptive=adaptive,
             default_engine="cuda" if init_state is not None else "pull",
             explain=explain)
         if explain:
             return planned
         plan = planned
-    if (checkpoint_every is not None or resume or init_state is not None) \
-            and plan.engine != "cuda":
+    chunked = checkpoint_every is not None or resume or init_state is not None
+    if chunked and plan.engine != "cuda":
         raise ValueError("checkpointed/warm-started fixpoints are a "
                          f"cuda-engine feature; got engine={plan.engine!r}")
-    if source is not None and dk.source is None:
+    if chunked and sources is not None:
+        raise ValueError("a batch of sources is neither checkpointed nor "
+                         "warm-started; run each source solo for that")
+    if (source is not None or sources is not None) and dk.source is None:
         raise ValueError(
             "run_direct source overrides need a source-generic DirectKernels "
             "(init_fn(v, s) with source=...); this kernel set is sourceless "
@@ -478,7 +741,8 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
     if dk.source is not None and iterate._init_arity(dk.init_fn) < 2:
         raise ValueError(
             "DirectKernels.source requires a source-generic init_fn(v, s)")
-    chk = _validate_inputs(g, source=source) if plan.validate else None
+    chk = _validate_inputs(g, source=source, sources=sources) \
+        if plan.validate else None
     max_iter_eff = dk.max_iter if dk.max_iter is not None else 2 * g.n + 4
     comp = iterate.CompRuntime(
         idx=0, op=dk.rop, dtype=iterate.DTYPES[dk.dtype], p_fn=dk.p_fn,
@@ -486,6 +750,9 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
         p_expr=dk.p_expr)
     plans = [Prim(dk.rop, 0)]
     _check_preconditions(chk, [comp], plans)
+    if sources is not None:
+        return _direct_batch(g, dk, comp, plans, sources, plan, ft_config,
+                             max_iter_eff, device)
     src_over = None if source is None else {0: int(source)}
     warm = dict(checkpoint_every=checkpoint_every, ckpt_dir=ckpt_dir,
                 resume=resume, init_state=init_state)
@@ -500,3 +767,36 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
     _check_outcome(res, max_iter_eff, plan.on_nonconverge)
     _plan.record_feedback(g, plan.kind, stats)
     return ExecResult(value=res.state[0], named={}, stats=stats)
+
+
+def _direct_batch(g, dk, comp, plans, sources, plan, ft_config, max_iter_eff,
+                  device) -> list:
+    """``run_direct(sources=…)`` past its checks: one batched fixpoint on
+    cuda, B solo queries (with the ``batch_degradation`` event) elsewhere."""
+    src_list = [int(s) for s in sources]
+    if plan.engine != "cuda":
+        return _each_solo(
+            lambda s: run_direct(g, dk, source=s, ft_config=ft_config,
+                                 plan=plan, device=device),
+            src_list, guard.batch_degradation(plan.engine, len(src_list)))
+    from repro_torch.kernels import ops as kops
+    try:
+        res = kops.iterate_cuda_batch(g, [comp], plans, src_list,
+                                      max_iter=dk.max_iter, tol=dk.tol,
+                                      plan=plan)
+    except Exception as exc:
+        if not plan.fallback or not guard.recoverable(exc):
+            raise
+        return _each_solo(lambda s: run_direct(
+            g, dk, engine="adaptive", source=s, validate=plan.validate,
+            on_nonconverge=plan.on_nonconverge, fallback=plan.fallback,
+            ft_config=ft_config, device=device), src_list,
+            _batch_fallback(exc), engine="adaptive")
+    _check_batch_outcomes(res, src_list, max_iter_eff, plan.on_nonconverge)
+    outs = []
+    for b in range(len(src_list)):
+        stats = ExecStats(engine_used="cuda", plan=plan)
+        _accumulate_slot(stats, res, b, 0.0)
+        _plan.record_feedback(g, plan.kind, stats)
+        outs.append(ExecResult(value=res.state[0][b], named={}, stats=stats))
+    return outs

@@ -1,10 +1,11 @@
 """Structured errors of the guarded execution layer.
 
 The port's copy of ``repro.core.guard``: the exception types every layer
-raises (graph containers, reference engines, CUDA sweeps, the executor) and
-the ``FallbackEvent`` record, and the engine fallback chain with its
-``recoverable`` rule.  Dependency-free, so nothing here imports torch or
-another module of the package.
+raises (graph containers, reference engines, CUDA sweeps, the executor),
+the ``FallbackEvent`` record (a batch's sequential degradation included)
+and the engine fallback chain with its ``recoverable`` rule.
+Dependency-free, so nothing here imports torch or another module of the
+package.
 
 One rule differs from the reference on purpose: a hand-written kernel that
 fails to build (``KernelBuildError``) or to launch (``KernelLaunchError``),
@@ -89,6 +90,18 @@ class FallbackEvent:
 
     def as_tuple(self):
         return (self.from_engine, self.to_engine, self.error)
+
+
+def batch_degradation(engine: str, batch_size: int) -> FallbackEvent:
+    """The planner's recorded decision that a [B]-source batch on an engine
+    other than ``cuda`` runs as B sequential queries (the engine has no
+    batched fixpoint).  Not an error: the event mirrors the plan's
+    ``batch_lane="sequential"``, so batch degradations surface in the same
+    ``ExecStats.fallbacks`` stream as guard fallbacks."""
+    return FallbackEvent(
+        f"batch[{batch_size}]:{engine}", f"sequential:{engine}",
+        f"engine {engine!r} has no batched fixpoint; plan resolved "
+        "batch_lane='sequential'")
 
 
 # Degradation order: the CUDA kernel engine falls back to the adaptive

@@ -191,27 +191,32 @@ class IterationResult:
 
 def _divergence(comps, new):
     """In-loop NaN/Inf sentinel: NaN anywhere; ±Inf only for sum/prod or
-    epilogue components (±Inf is the legitimate ⊥ of min/max)."""
-    bad = torch.zeros((), dtype=torch.bool, device=new[0].device)
+    epilogue components (±Inf is the legitimate ⊥ of min/max).  Reduces
+    over the last axis: a 0-d flag for [n] states, one per query slot for
+    a batch's [S, n]."""
+    bad = torch.zeros(new[0].shape[:-1], dtype=torch.bool,
+                      device=new[0].device)
     for i, cr in enumerate(comps):
         if not cr.dtype.is_floating_point:
             continue
-        bad = bad | torch.isnan(new[i]).any()
+        bad = bad | torch.isnan(new[i]).any(dim=-1)
         if cr.op in ("sum", "prod") or cr.e_fn is not None:
-            bad = bad | torch.isinf(new[i]).any()
+            bad = bad | torch.isinf(new[i]).any(dim=-1)
     return bad
 
 
 def _residual(comps, new, old):
-    """Max |new − old| over float components, non-finite diffs masked."""
-    r = torch.zeros((), dtype=torch.float32, device=new[0].device)
+    """Max |new − old| over float components, non-finite diffs masked;
+    per query slot for a batch's [S, n] states, as ``_divergence``."""
+    r = torch.zeros(new[0].shape[:-1], dtype=torch.float32,
+                    device=new[0].device)
     for i, cr in enumerate(comps):
         if not cr.dtype.is_floating_point:
             continue
         d = (new[i] - old[i]).abs()
         d = torch.where(torch.isfinite(d), d, 0.0)
-        if d.numel():
-            r = torch.maximum(r, d.max())
+        if d.shape[-1]:
+            r = torch.maximum(r, d.amax(dim=-1))
     return r
 
 

@@ -13,8 +13,11 @@ Engines: ``pull``, ``push``, ``adaptive`` and ``dense`` (the reference
 engines of ``core.iterate``) and ``cuda`` (the direction-optimized
 blocked-ELL engine whose sweeps are the hand-written CUDA kernels — the
 reference's ``pallas``).  ``degrade_plan`` gives the plan one step of the
-guard fallback chain runs under.  The sharded engines, batching and
-mutation-aware planning belong to later slices.
+guard fallback chain runs under.  ``batch_size`` / ``batch_lane``
+describe a batch of query sources: "vmapped" on ``cuda`` (one launch per
+sweep per iteration for the whole batch, the reference's name for it),
+"sequential" elsewhere (B solo queries, a recorded degradation).  The
+sharded engines and mutation-aware planning belong to later slices.
 
 A recorded-stats feedback cache closes the loop: each executed query
 records its push/pull split and resolve work per (graph, query kind);
@@ -124,6 +127,8 @@ class ExecutionPlan:
     dense_threshold: float = DENSE_FRONTIER
     push_resolution: str = PUSH_RESOLUTION
     resolution_hint: Optional[str] = None
+    batch_size: Optional[int] = None
+    batch_lane: Optional[str] = None
     validate: bool = True
     on_nonconverge: str = "raise"
     fallback: bool = False
@@ -297,15 +302,16 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
                    fallback: bool = False,
                    divergence_sentinel: bool = True,
                    adaptive: bool = False,
+                   batch: Optional[int] = None,
                    default_engine: str = "pull",
                    explain: bool = False):
     """Resolve every execution knob of one query into an ``ExecutionPlan``.
 
     An explicit caller kwarg always wins; ``engine=None`` takes the entry
     point's default; ``engine="auto"`` picks ``cuda``; unset knobs take the
-    documented defaults.  Plans are cached per (graph identity, kind,
-    hints[, feedback epoch]); ``explain=True`` returns a
-    ``PlanExplanation``."""
+    documented defaults.  ``batch`` (B query sources) resolves the batch
+    lane.  Plans are cached per (graph identity, kind, hints[, feedback
+    epoch]); ``explain=True`` returns a ``PlanExplanation``."""
     from repro_torch.graph import structure
 
     decisions: dict = {} if explain else None
@@ -315,7 +321,7 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
     fb_epoch = fb.epoch if fb is not None else 0
     hints_key = (engine, model, switch_k, dense_threshold, push_resolution,
                  validate, on_nonconverge, fallback, divergence_sentinel,
-                 adaptive, default_engine)
+                 adaptive, batch, default_engine)
     cache_key = (id(g), kind, hints_key, fb_epoch)
     if not explain:
         hit = _PLAN_CACHE.get(cache_key)
@@ -380,11 +386,21 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
     if decisions is not None:
         decisions["push_resolution"] = res_reason
 
+    lane = None
+    if batch is not None:
+        lane = "vmapped" if eng == "cuda" else "sequential"
+        if decisions is not None:
+            decisions["batch_lane"] = (
+                f"B={batch} sources in one launch per sweep per iteration"
+                if lane == "vmapped"
+                else f"engine {eng!r} has no batched fixpoint — B={batch} "
+                     "sequential runs (recorded degradation)")
+
     plan = ExecutionPlan(
         engine=eng, model=model, direction=direction,
         switch_k=k_norm, dense_threshold=dt,
         push_resolution=res, resolution_hint=push_resolution,
-        validate=validate, on_nonconverge=on_nonconverge,
+        batch_size=batch, batch_lane=lane, validate=validate, on_nonconverge=on_nonconverge,
         fallback=fallback, divergence_sentinel=divergence_sentinel,
         adaptive=adaptive, kind=kind)
     if explain:

@@ -39,6 +39,19 @@
 // rectangle; the other per-edge inputs are read only in the tiles that
 // run.
 //
+// Batched queries.  Every kernel takes a slot axis (struct Slots): one
+// launch sweeps B queries over the one shared layout, each slot with its
+// own states, frontier, tile activity and outputs at a per-slot stride.
+// The batched walk deals (tile, slot) items (walk_items_if): tile-major,
+// so the B slots of a tile run in neighbouring blocks and its layout
+// bytes come from device memory once and from L2 for the other slots, or
+// slot-major where the slots' gathered words would not fit in L2 together
+// (the caller picks).  Inside a visit nothing depends on the slot but the
+// addresses: the same loads, the same lex chain, the same order, so each
+// slot's outputs are the bits of its solo launch.  A one-slot launch runs
+// the solo instantiation (BATCHED = false), the single-query code with no
+// slot arithmetic.
+//
 // What bounds them on an H100: bytes.  Each processed slot reads its mask
 // and (pull) its source index; of the weight, the capacity, (push) the
 // destination index and the source's degrees it reads only what the
@@ -220,6 +233,23 @@ __device__ __forceinline__ void write_identities(Ptrs outs, long long cell) {
     static_cast<uint32_t*>(outs.p[l])[cell] = R::ident(R::lev_pos(l));
 }
 
+// The slot axis of a batched launch: `n` queries over one shared layout.
+// Each per-slot array holds slot s at s × its stride (in elements); a
+// stride of 0 shares one array among the slots.  The layout arrays (srcs
+// or dsts, weight, capacity, mask, in2out, valid) and the degree vectors
+// are always shared.
+struct Slots {
+  int n;
+  int slot_major;        // item order: 0 tile-major, 1 slot-major
+  long long tiles;       // the walked tile activity (pull given, push, resolve)
+  long long act_out;     // the pull kernel's derived activity
+  long long active;      // the frontier
+  long long state;       // each component's state
+  long long out;         // each output array (pull/resolve cells, push cands)
+  long long push_act;    // resolve: the push sweep's tile activity
+  long long cand;        // resolve: each candidate array
+};
+
 // The walk over a tile list.  Tiles are dealt to blocks in turn, tile t
 // to block t mod gridDim.x, so that a run of live tiles (rmat's hub rows
 // fill whole row tiles) spreads over the grid instead of queueing on one
@@ -250,48 +280,135 @@ __device__ __forceinline__ void walk_tiles_if(long long n_tiles, Busy busy,
   }
 }
 
-// The walk over the tiles whose word in tile_act is set.
-template <class Visit>
+// The same walk over a batch's (tile, slot) items, dealt to the blocks as
+// tiles are.  Tile-major items (the slots of one tile are neighbouring
+// items, so they run in neighbouring blocks and the layout tile comes from
+// device memory once and from L2 for the other slots) suit slots whose
+// gathered words fit in L2 together; slot-major items (one slot's tiles
+// after another's) keep one slot's gathered words in L2 at a time when
+// they do not.  Each thread decodes its own item once (in 32 bits where
+// the items allow: with the 64-bit division the weighted-PageRank round's
+// derived pull took 1.3 to 1.4 times as long), and the visits read the
+// decoded (tile, slot) from shared memory.
+template <class Busy, class Visit>
+__device__ __forceinline__ void walk_items_if(long long n_tiles,
+                                              const Slots& sl, Busy busy,
+                                              Visit visit) {
+  constexpr int WARPS = THREADS / 32;
+  __shared__ uint32_t busy_w[WARPS];
+  __shared__ int tile_of[THREADS], slot_of[THREADS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long grid = gridDim.x, b = blockIdx.x;
+  const long long n_items = n_tiles * sl.n;
+  for (long long c = 0; c * grid + b < n_items; c += THREADS) {
+    const long long item = (c + threadIdx.x) * grid + b;
+    bool act = false;
+    if (item < n_items) {
+      long long tile;
+      int s;
+      if (n_items <= 0xffffffffll) {        // a 32-bit division
+        const unsigned u = (unsigned)item;
+        const unsigned r = sl.slot_major ? (unsigned)n_tiles
+                                         : (unsigned)sl.n;
+        const unsigned hi = u / r, lo = u - hi * r;
+        tile = sl.slot_major ? lo : hi;
+        s = (int)(sl.slot_major ? hi : lo);
+      } else if (sl.slot_major) {
+        s = (int)(item / n_tiles);
+        tile = item - s * n_tiles;
+      } else {
+        tile = item / sl.n;
+        s = (int)(item - tile * sl.n);
+      }
+      tile_of[threadIdx.x] = (int)tile;   // < 2^21 tiles
+      slot_of[threadIdx.x] = s;
+      act = busy(tile, s);
+    }
+    const uint32_t m = __ballot_sync(0xffffffffu, act);
+    if (lane == 0) busy_w[warp] = m;
+    __syncthreads();
+#pragma unroll 1
+    for (int w = 0; w < WARPS; ++w)
+      for (uint32_t todo = busy_w[w]; todo; todo &= todo - 1) {
+        const int k = w * 32 + (__ffs(todo) - 1);
+        visit((long long)tile_of[k], slot_of[k]);
+      }
+    __syncthreads();            // busy_w[], tile_of[], slot_of[] are reused
+  }
+}
+
+// The walk over the tiles (BATCHED: the (tile, slot) items) whose word in
+// tile_act (slot s at s × sl.tiles) is set; visit(tile, slot).  The solo
+// instantiation is the one-slot walk over tiles, with slot 0.
+template <bool BATCHED, class Visit>
 __device__ __forceinline__ void walk_tiles(const int* __restrict__ tile_act,
-                                           long long n_tiles, Visit visit) {
-  walk_tiles_if(
-      n_tiles, [&](long long t) { return tile_act[t] != 0; }, visit);
+                                           long long n_tiles, const Slots& sl,
+                                           Visit visit) {
+  if constexpr (BATCHED)
+    walk_items_if(
+        n_tiles, sl,
+        [&](long long tile, int s) {
+          return tile_act[s * sl.tiles + tile] != 0;
+        },
+        visit);
+  else
+    walk_tiles_if(
+        n_tiles, [&](long long t) { return tile_act[t] != 0; },
+        [&](long long t) { visit(t, 0); });
 }
 
 // The cells of the tiles whose word in tile_act is 0 get the identities
-// (has-pred 0) in one grid-stride pass over the [n_pad, n_j] cells,
-// coalesced; with act_out, such a tile's activity word is 0 too.  The walk
-// over tile_act writes every other cell, so the two write disjoint cells.
-template <class R>
+// (has-pred 0) in one grid-stride pass per slot over its [n_pad, n_j]
+// cells, coalesced; with act_out, such a tile's activity word is 0 too.
+// The walk over tile_act writes every other cell, so the two write
+// disjoint cells.
+template <class R, bool BATCHED>
 __device__ __forceinline__ void fill_skipped(const int* __restrict__ tile_act,
                                              long long n_tiles, int n_j,
                                              Ptrs outs, int need_hp,
-                                             int* __restrict__ act_out) {
+                                             int* __restrict__ act_out,
+                                             const Slots& sl) {
   const int n_cells = (int)n_tiles * BLOCK_V;             // < 2^24 cells
-  for (int q = blockIdx.x * THREADS + threadIdx.x; q < n_cells;
-       q += gridDim.x * THREADS) {
-    const int row = q / n_j, j = q - row * n_j;
-    const int t = (row / BLOCK_V) * n_j + j;
-    if (tile_act[t] == 0) {
-      write_identities<R>(outs, q);
-      if (need_hp)
-        for (int k = 0; k < R::NC; ++k)
-          static_cast<int*>(outs.p[R::NLEV + k])[q] = 0;
-      if (act_out != nullptr && row % BLOCK_V == 0) act_out[t] = 0;
+  const int n_slots = BATCHED ? sl.n : 1;
+  for (int s = 0; s < n_slots; ++s) {
+    const int* act = BATCHED ? tile_act + s * sl.tiles : tile_act;
+    const long long o = BATCHED ? s * sl.out : 0;
+    for (int q = blockIdx.x * THREADS + threadIdx.x; q < n_cells;
+         q += gridDim.x * THREADS) {
+      const int row = q / n_j, j = q - row * n_j;
+      const int t = (row / BLOCK_V) * n_j + j;
+      if (act[t] == 0) {
+        write_identities<R>(outs, o + q);
+        if (need_hp)
+          for (int k = 0; k < R::NC; ++k)
+            static_cast<int*>(outs.p[R::NLEV + k])[o + q] = 0;
+        if (act_out != nullptr && row % BLOCK_V == 0)
+          act_out[(BATCHED ? s * sl.act_out : 0) + t] = 0;
+      }
     }
   }
 }
 
+// A slot's offset into a per-slot array: 0 in the solo instantiation.
+template <bool BATCHED>
+__device__ __forceinline__ long long at(int slot, long long stride) {
+  if constexpr (BATCHED)
+    return slot * stride;
+  else
+    return 0;
+}
+
 // Pull sweep (<- _fused_kernel) on the walk.  outs.p = one [n_pad, n_j]
 // candidate array per lex level, then (need_hp) one int32 [n_pad, n_j]
-// has-pred array per component.  DERIVE = false: tile_act is the
-// frontier's tile activity and every walked tile runs.  DERIVE = true:
-// tile_act is the layout's static non-empty tiles; the block votes whether
-// any slot of the tile is real with an active source, writes the vote to
-// act_out[tile] ([n_i, n_j] int32), and an inactive tile writes only its
-// identity cells (has-pred 0).  A tile that runs computes the same in
-// both modes: the same loads, the same lex chain, the same order.
-template <class R, bool DERIVE>
+// has-pred array per component, each per slot.  DERIVE = false: tile_act
+// is the frontier's tile activity and every walked tile runs.  DERIVE =
+// true: tile_act is the layout's static non-empty tiles (shared by the
+// slots); the block votes whether any slot of the tile is real with an
+// active source, writes the vote to act_out[slot][tile] ([n_i, n_j] int32
+// per slot), and an inactive tile writes only its identity cells (has-pred
+// 0).  A tile that runs computes the same in both modes and in every slot:
+// the same loads, the same lex chain, the same order.
+template <class R, bool DERIVE, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 pull_kernel(const int* __restrict__ tile_act, long long n_tiles,
             int* __restrict__ act_out, const int* __restrict__ srcs,
@@ -300,13 +417,14 @@ pull_kernel(const int* __restrict__ tile_act, long long n_tiles,
             const unsigned char* __restrict__ mask,
             const int* __restrict__ active, const float* __restrict__ outdeg,
             const float* __restrict__ wdeg, Ptrs states, Ptrs outs, int n_j,
-            int width, float nv, int need_hp) {
+            int width, float nv, int need_hp, Slots sl) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  auto visit = [&](long long tile) {
+  auto visit = [&](long long tile, int slot) {
     const int i = (int)tile / n_j, j = (int)tile - i * n_j;  // < 2^21 tiles
     const long long row = (long long)i * BLOCK_V + warp;
-    const long long cell = row * n_j + j;
+    const long long cell = at<BATCHED>(slot, sl.out) + row * n_j + j;
     const long long base = row * width + j * BLOCK_E + lane * SLOTS;
+    const int* act_s = active + at<BATCHED>(slot, sl.active);
     int sv[SLOTS];
     bool raw[SLOTS], act[SLOTS];
     load4<int4>(srcs + base, sv);
@@ -314,12 +432,13 @@ pull_kernel(const int* __restrict__ tile_act, long long n_tiles,
     bool any = false;
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
-      act[s] = raw[s] && active[sv[s]] != 0;
+      act[s] = raw[s] && act_s[sv[s]] != 0;
       any = any || act[s];
     }
     if constexpr (DERIVE) {               // one decision per tile
       const bool live = __syncthreads_or(any) != 0;
-      if (threadIdx.x == 0) act_out[tile] = live ? 1 : 0;
+      if (threadIdx.x == 0)
+        act_out[at<BATCHED>(slot, sl.act_out) + tile] = live ? 1 : 0;
       if (!live) {
         if (lane == 0) {
           write_identities<R>(outs, cell);
@@ -342,7 +461,8 @@ pull_kernel(const int* __restrict__ tile_act, long long n_tiles,
     uint32_t gathered[R::NC][SLOTS], props[R::NC][SLOTS];
 #pragma unroll
     for (int k = 0; k < R::NC; ++k) {       // ONE gather per component
-      const uint32_t* st = static_cast<const uint32_t*>(states.p[k]);
+      const uint32_t* st = static_cast<const uint32_t*>(states.p[k]) +
+                           at<BATCHED>(slot, sl.state);
       const uint32_t id = R::ident(k);
       const bool f = R::comp_float(k);
 #pragma unroll
@@ -377,17 +497,18 @@ pull_kernel(const int* __restrict__ tile_act, long long n_tiles,
           static_cast<int*>(outs.p[R::NLEV + k])[cell] = nb[k] ? 1 : 0;
     }
   };
-  fill_skipped<R>(tile_act, n_tiles, n_j, outs, need_hp,
-                  DERIVE ? act_out : nullptr);
-  walk_tiles(tile_act, n_tiles, visit);
+  fill_skipped<R, BATCHED>(tile_act, n_tiles, n_j, outs, need_hp,
+                           DERIVE ? act_out : nullptr, sl);
+  walk_tiles<BATCHED>(tile_act, n_tiles, sl, visit);
 }
 
 // Push sweep (<- _push_kernel) over the out-layout: rows are sources, state
 // is read per row.  outs.p = one [n_pad, width] per-edge candidate array per
-// component.  Only active tiles are written: there, a padding slot or an
-// inactive row gets the identity and every other slot its P value, bit for
-// bit the reference's; a skipped tile's slots are left as they were.
-template <class R>
+// component, each per slot.  Only active tiles are written: there, a
+// padding slot or an inactive row gets the identity and every other slot
+// its P value, bit for bit the reference's; a skipped tile's slots are
+// left as they were.
+template <class R, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 push_kernel(const int* __restrict__ tile_act, long long n_tiles,
             const int* __restrict__ dsts, const float* __restrict__ weight,
@@ -395,9 +516,9 @@ push_kernel(const int* __restrict__ tile_act, long long n_tiles,
             const unsigned char* __restrict__ mask,
             const int* __restrict__ active, const float* __restrict__ outdeg,
             const float* __restrict__ wdeg, Ptrs states, Ptrs outs, int n_j,
-            int width, float nv) {
+            int width, float nv, Slots sl) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  auto visit = [&](long long tile) {
+  auto visit = [&](long long tile, int slot) {
     const int i = (int)tile / n_j, j = (int)tile - i * n_j;  // < 2^21 tiles
     const long long row = (long long)i * BLOCK_V + warp;
     const long long base = row * width + j * BLOCK_E + lane * SLOTS;
@@ -408,7 +529,7 @@ push_kernel(const int* __restrict__ tile_act, long long n_tiles,
     if constexpr (R::READS_W) load4<float4>(weight + base, wv);
     if constexpr (R::READS_C) load4<float4>(capacity + base, cv);
     load_mask4(mask + base, live);
-    const bool row_act = active[row] != 0;
+    const bool row_act = active[at<BATCHED>(slot, sl.active) + row] != 0;
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) live[s] = live[s] && row_act;
     float od = 0.f, wd = 0.f;
@@ -417,7 +538,8 @@ push_kernel(const int* __restrict__ tile_act, long long n_tiles,
 #pragma unroll
     for (int k = 0; k < R::NC; ++k) {
       const uint32_t id = R::ident(k);
-      const uint32_t nw = static_cast<const uint32_t*>(states.p[k])[row];
+      const uint32_t nw = static_cast<const uint32_t*>(
+          states.p[k])[at<BATCHED>(slot, sl.state) + row];
       const bool bot = weq(nw, id, R::comp_float(k));
       uint32_t o[SLOTS];
 #pragma unroll
@@ -426,11 +548,12 @@ push_kernel(const int* __restrict__ tile_act, long long n_tiles,
         const uint32_t p = bot ? id : R::P(k, e, nw);   // C3: ⊥ stays ⊥
         o[s] = live[s] ? p : id;
       }
-      *reinterpret_cast<uint4*>(static_cast<uint32_t*>(outs.p[k]) + base) =
+      *reinterpret_cast<uint4*>(static_cast<uint32_t*>(outs.p[k]) +
+                                at<BATCHED>(slot, sl.out) + base) =
           make_uint4(o[0], o[1], o[2], o[3]);
     }
   };
-  walk_tiles(tile_act, n_tiles, visit);
+  walk_tiles<BATCHED>(tile_act, n_tiles, sl, visit);
 }
 
 // Dst-sorted push resolution (<- _resolve_kernel) over the dst-major
@@ -443,21 +566,24 @@ push_kernel(const int* __restrict__ tile_act, long long n_tiles,
 // per component, whether a valid slot's source row x / width_out holds a
 // non-⊥ state.  outs.p = one [n_pad, n_j] array per lex level, then (need_hp)
 // one int32 [n_pad, n_j] has-pred array per component; a skipped tile's
-// cells hold the identities (has-pred 0).
-template <class R>
+// cells hold the identities (has-pred 0).  Every query slot reads its own
+// push activity, candidates and states (sl.push_act, sl.cand, sl.state).
+template <class R, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 resolve_kernel(const int* __restrict__ tile_act, long long n_tiles,
                const unsigned char* __restrict__ valid,
                const int* __restrict__ in2out,
                const int* __restrict__ push_act, Ptrs cands, Ptrs states,
-               Ptrs outs, int n_j, int width, int width_out, int need_hp) {
+               Ptrs outs, int n_j, int width, int width_out, int need_hp,
+               Slots sl) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_j_out = width_out / BLOCK_E;
-  auto visit = [&](long long tile) {
+  auto visit = [&](long long tile, int slot) {
     const int i = (int)tile / n_j, j = (int)tile - i * n_j;
     const long long row = (long long)i * BLOCK_V + warp;
-    const long long cell = row * n_j + j;
+    const long long cell = at<BATCHED>(slot, sl.out) + row * n_j + j;
     const long long base = row * width + j * BLOCK_E + lane * SLOTS;
+    const int* pact = push_act + at<BATCHED>(slot, sl.push_act);
     int xv[SLOTS], src[SLOTS];
     bool ok[SLOTS], ran[SLOTS];
     load4<int4>(in2out + base, xv);
@@ -466,13 +592,14 @@ resolve_kernel(const int* __restrict__ tile_act, long long n_tiles,
     for (int s = 0; s < SLOTS; ++s) {
       src[s] = xv[s] / width_out;
       const int col = xv[s] - src[s] * width_out;
-      ran[s] = ok[s] && push_act[(long long)(src[s] / BLOCK_V) * n_j_out +
-                                 col / BLOCK_E] != 0;
+      ran[s] = ok[s] && pact[(long long)(src[s] / BLOCK_V) * n_j_out +
+                             col / BLOCK_E] != 0;
     }
     uint32_t vals[R::NC][SLOTS];
 #pragma unroll
     for (int k = 0; k < R::NC; ++k) {
-      const uint32_t* cand = static_cast<const uint32_t*>(cands.p[k]);
+      const uint32_t* cand = static_cast<const uint32_t*>(cands.p[k]) +
+                             at<BATCHED>(slot, sl.cand);
       const uint32_t id = R::ident(k);
 #pragma unroll
       for (int s = 0; s < SLOTS; ++s)
@@ -484,7 +611,8 @@ resolve_kernel(const int* __restrict__ tile_act, long long n_tiles,
     if (need_hp) {                          // fused has-pred probe
 #pragma unroll
       for (int k = 0; k < R::NC; ++k) {
-        const uint32_t* st = static_cast<const uint32_t*>(states.p[k]);
+        const uint32_t* st = static_cast<const uint32_t*>(states.p[k]) +
+                             at<BATCHED>(slot, sl.state);
         bool any = false;
 #pragma unroll
         for (int s = 0; s < SLOTS; ++s)
@@ -502,13 +630,14 @@ resolve_kernel(const int* __restrict__ tile_act, long long n_tiles,
           static_cast<int*>(outs.p[R::NLEV + k])[cell] = nb[k] ? 1 : 0;
     }
   };
-  fill_skipped<R>(tile_act, n_tiles, n_j, outs, need_hp, nullptr);
-  walk_tiles(tile_act, n_tiles, visit);
+  fill_skipped<R, BATCHED>(tile_act, n_tiles, n_j, outs, need_hp, nullptr,
+                           sl);
+  walk_tiles<BATCHED>(tile_act, n_tiles, sl, visit);
 }
 
 // The walking kernels' grid: as many blocks as the card holds at once
 // (SMs × resident blocks of `kernel`, asked once per kernel and cached by
-// the entry point), never more than the steps of THREADS tiles need.
+// the entry point), never more than the steps of THREADS items need.
 template <class K>
 inline int resident_blocks(K kernel) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -529,24 +658,71 @@ inline Ptrs pack(void* const* p, int n) {
   return out;
 }
 
+// The slot axis from an entry point's arguments: the slot count, the item
+// order and the per-slot strides in the order of struct Slots.
+inline Slots slots_of(int n_slots, int slot_major, const long long* strides) {
+  return Slots{n_slots,    slot_major, strides[0], strides[1], strides[2],
+               strides[3], strides[4], strides[5], strides[6]};
+}
+
 // One launch of the pull kernel in either mode, on the walk's grid.
-template <class R, bool DERIVE>
+template <class R, bool DERIVE, bool BATCHED>
 inline int launch_pull(const void* tile_act, void* act_out, const void* srcs,
                        const void* weight, const void* capacity,
                        const void* mask, const void* active,
                        const void* outdeg, const void* wdeg,
                        void* const* states, void* const* outs, int n_tiles,
-                       int n_j, int width, float nv, int need_hp,
+                       int n_j, int width, float nv, int need_hp, Slots sl,
                        void* stream) {
   static int resident = 0;
-  if (!resident) resident = resident_blocks(pull_kernel<R, DERIVE>);
-  pull_kernel<R, DERIVE><<<walk_grid(resident, n_tiles), THREADS, 0,
-                           (cudaStream_t)stream>>>(
-      (const int*)tile_act, n_tiles, (int*)act_out, (const int*)srcs,
-      (const float*)weight, (const float*)capacity,
-      (const unsigned char*)mask, (const int*)active, (const float*)outdeg,
-      (const float*)wdeg, pack(states, R::NC),
-      pack(outs, R::NLEV + (need_hp ? R::NC : 0)), n_j, width, nv, need_hp);
+  if (!resident) resident = resident_blocks(pull_kernel<R, DERIVE, BATCHED>);
+  pull_kernel<R, DERIVE, BATCHED>
+      <<<walk_grid(resident, (long long)n_tiles * sl.n), THREADS, 0,
+         (cudaStream_t)stream>>>(
+          (const int*)tile_act, n_tiles, (int*)act_out, (const int*)srcs,
+          (const float*)weight, (const float*)capacity,
+          (const unsigned char*)mask, (const int*)active,
+          (const float*)outdeg, (const float*)wdeg, pack(states, R::NC),
+          pack(outs, R::NLEV + (need_hp ? R::NC : 0)), n_j, width, nv,
+          need_hp, sl);
+  return (int)cudaGetLastError();
+}
+
+template <class R, bool BATCHED>
+inline int launch_push(const void* tile_act, const void* dsts,
+                       const void* weight, const void* capacity,
+                       const void* mask, const void* active,
+                       const void* outdeg, const void* wdeg,
+                       void* const* states, void* const* outs, int n_tiles,
+                       int n_j, int width, float nv, Slots sl, void* stream) {
+  static int resident = 0;
+  if (!resident) resident = resident_blocks(push_kernel<R, BATCHED>);
+  push_kernel<R, BATCHED><<<walk_grid(resident, (long long)n_tiles * sl.n),
+                            THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)tile_act, n_tiles, (const int*)dsts, (const float*)weight,
+      (const float*)capacity, (const unsigned char*)mask, (const int*)active,
+      (const float*)outdeg, (const float*)wdeg, pack(states, R::NC),
+      pack(outs, R::NC), n_j, width, nv, sl);
+  return (int)cudaGetLastError();
+}
+
+template <class R, bool BATCHED>
+inline int launch_resolve(const void* tile_act, const void* valid,
+                          const void* in2out, const void* push_act,
+                          void* const* cands, void* const* states,
+                          void* const* outs, int n_tiles, int n_j, int width,
+                          int width_out, int need_hp, Slots sl,
+                          void* stream) {
+  static int resident = 0;
+  if (!resident) resident = resident_blocks(resolve_kernel<R, BATCHED>);
+  resolve_kernel<R, BATCHED>
+      <<<walk_grid(resident, (long long)n_tiles * sl.n), THREADS, 0,
+         (cudaStream_t)stream>>>(
+          (const int*)tile_act, n_tiles, (const unsigned char*)valid,
+          (const int*)in2out, (const int*)push_act, pack(cands, R::NC),
+          pack(states, need_hp ? R::NC : 0),
+          pack(outs, R::NLEV + (need_hp ? R::NC : 0)), n_j, width,
+          width_out, need_hp, sl);
   return (int)cudaGetLastError();
 }
 
@@ -561,11 +737,15 @@ inline void walk_attributes(K kernel, int* out) {
 }  // namespace grafs
 
 // Plain C entry points of one round's library; each returns the
-// cudaGetLastError() of its launch (0 = launched).  grafs_pull runs the
-// pull kernel with the given activity when act_out is null, else with the
-// activity derived from the static tiles in tile_act (written to act_out).
-// grafs_walk_attributes writes the walking kernels' registers per thread
-// and grids: push, resolve, pull (given), pull (derived), a pair each.
+// cudaGetLastError() of its launch (0 = launched).  Each sweep takes the
+// slot count of its launch, its item order (slot_major) and the seven
+// per-slot strides of struct Slots (a host array; 0 shares an array among
+// the slots): one slot runs the solo instantiation, more the batched one.
+// grafs_pull runs the pull kernel with the given activity when act_out is
+// null, else with the activity derived from the static tiles in tile_act
+// (written to act_out).  grafs_walk_attributes writes the walking kernels'
+// registers per thread and grids: push, resolve, pull (given), pull
+// (derived), a pair each, solo then batched.
 #define GRAFS_DEFINE_ENTRY_POINTS(R)                                          \
   extern "C" int grafs_pull(const void* tile_act, void* act_out,             \
                             const void* srcs, const void* weight,            \
@@ -573,17 +753,19 @@ inline void walk_attributes(K kernel, int* out) {
                             const void* active, const void* outdeg,          \
                             const void* wdeg, void* const* states,           \
                             void* const* outs, int n_tiles, int n_j,         \
-                            int width, float nv, int need_hp,                \
+                            int width, float nv, int need_hp, int n_slots,   \
+                            int slot_major, const long long* strides,        \
                             void* stream) {                                  \
-    return act_out == nullptr                                                \
-        ? grafs::launch_pull<R, false>(                                      \
-              tile_act, act_out, srcs, weight, capacity, mask, active,       \
-              outdeg, wdeg, states, outs, n_tiles, n_j, width, nv, need_hp,  \
-              stream)                                                        \
-        : grafs::launch_pull<R, true>(                                       \
-              tile_act, act_out, srcs, weight, capacity, mask, active,       \
-              outdeg, wdeg, states, outs, n_tiles, n_j, width, nv, need_hp,  \
-              stream);                                                       \
+    const grafs::Slots sl = grafs::slots_of(n_slots, slot_major, strides);   \
+    auto* const launch =                                                     \
+        act_out == nullptr                                                   \
+            ? (n_slots == 1 ? grafs::launch_pull<R, false, false>            \
+                            : grafs::launch_pull<R, false, true>)            \
+            : (n_slots == 1 ? grafs::launch_pull<R, true, false>             \
+                            : grafs::launch_pull<R, true, true>);            \
+    return launch(tile_act, act_out, srcs, weight, capacity, mask, active,   \
+                  outdeg, wdeg, states, outs, n_tiles, n_j, width, nv,       \
+                  need_hp, sl, stream);                                      \
   }                                                                          \
   extern "C" int grafs_push(const void* tile_act, const void* dsts,          \
                             const void* weight, const void* capacity,        \
@@ -591,41 +773,35 @@ inline void walk_attributes(K kernel, int* out) {
                             const void* outdeg, const void* wdeg,            \
                             void* const* states, void* const* outs,          \
                             int n_tiles, int n_j, int width, float nv,       \
-                            void* stream) {                                  \
-    static int resident = 0;                                                 \
-    if (!resident) resident = grafs::resident_blocks(grafs::push_kernel<R>); \
-    grafs::push_kernel<R><<<grafs::walk_grid(resident, n_tiles),             \
-                            grafs::THREADS, 0, (cudaStream_t)stream>>>(      \
-        (const int*)tile_act, n_tiles, (const int*)dsts,                     \
-        (const float*)weight, (const float*)capacity,                        \
-        (const unsigned char*)mask, (const int*)active,                      \
-        (const float*)outdeg, (const float*)wdeg,                            \
-        grafs::pack(states, R::NC), grafs::pack(outs, R::NC), n_j, width,    \
-        nv);                                                                 \
-    return (int)cudaGetLastError();                                          \
+                            int n_slots, int slot_major,                     \
+                            const long long* strides, void* stream) {        \
+    const grafs::Slots sl = grafs::slots_of(n_slots, slot_major, strides);   \
+    auto* const launch = n_slots == 1 ? grafs::launch_push<R, false>         \
+                                      : grafs::launch_push<R, true>;         \
+    return launch(tile_act, dsts, weight, capacity, mask, active, outdeg,    \
+                  wdeg, states, outs, n_tiles, n_j, width, nv, sl, stream);  \
   }                                                                          \
   extern "C" int grafs_resolve(const void* tile_act, const void* valid,      \
                                const void* in2out, const void* push_act,     \
                                void* const* cands, void* const* states,      \
                                void* const* outs, int n_tiles, int n_j,      \
                                int width, int width_out, int need_hp,        \
-                               void* stream) {                               \
-    static int resident = 0;                                                 \
-    if (!resident)                                                           \
-      resident = grafs::resident_blocks(grafs::resolve_kernel<R>);           \
-    grafs::resolve_kernel<R><<<grafs::walk_grid(resident, n_tiles),          \
-                               grafs::THREADS, 0, (cudaStream_t)stream>>>(   \
-        (const int*)tile_act, n_tiles, (const unsigned char*)valid,          \
-        (const int*)in2out, (const int*)push_act, grafs::pack(cands, R::NC), \
-        grafs::pack(states, need_hp ? R::NC : 0),                            \
-        grafs::pack(outs, R::NLEV + (need_hp ? R::NC : 0)), n_j, width,      \
-        width_out, need_hp);                                                 \
-    return (int)cudaGetLastError();                                          \
+                               int n_slots, int slot_major,                  \
+                               const long long* strides, void* stream) {     \
+    const grafs::Slots sl = grafs::slots_of(n_slots, slot_major, strides);   \
+    auto* const launch = n_slots == 1 ? grafs::launch_resolve<R, false>      \
+                                      : grafs::launch_resolve<R, true>;      \
+    return launch(tile_act, valid, in2out, push_act, cands, states, outs,    \
+                  n_tiles, n_j, width, width_out, need_hp, sl, stream);      \
   }                                                                          \
   extern "C" int grafs_walk_attributes(int* out) {                           \
-    grafs::walk_attributes(grafs::push_kernel<R>, out);                      \
-    grafs::walk_attributes(grafs::resolve_kernel<R>, out + 2);               \
-    grafs::walk_attributes(grafs::pull_kernel<R, false>, out + 4);           \
-    grafs::walk_attributes(grafs::pull_kernel<R, true>, out + 6);            \
+    grafs::walk_attributes(grafs::push_kernel<R, false>, out);               \
+    grafs::walk_attributes(grafs::resolve_kernel<R, false>, out + 2);        \
+    grafs::walk_attributes(grafs::pull_kernel<R, false, false>, out + 4);    \
+    grafs::walk_attributes(grafs::pull_kernel<R, true, false>, out + 6);     \
+    grafs::walk_attributes(grafs::push_kernel<R, true>, out + 8);            \
+    grafs::walk_attributes(grafs::resolve_kernel<R, true>, out + 10);        \
+    grafs::walk_attributes(grafs::pull_kernel<R, false, true>, out + 12);    \
+    grafs::walk_attributes(grafs::pull_kernel<R, true, true>, out + 14);     \
     return (int)cudaGetLastError();                                          \
   }

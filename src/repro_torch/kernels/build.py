@@ -111,9 +111,13 @@ _VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 def _declare_round(lib):
     vp, i32, f32 = _VP, _I32, _F32
-    lib.grafs_pull.argtypes = [vp] * 9 + [vp, vp, i32, i32, i32, f32, i32, vp]
-    lib.grafs_push.argtypes = [vp] * 8 + [vp, vp, i32, i32, i32, f32, vp]
-    lib.grafs_resolve.argtypes = [vp] * 7 + [i32] * 5 + [vp]
+    # each sweep ends in (slot count, slot-major order, per-slot strides,
+    # stream)
+    slots = [i32, i32, vp, vp]
+    lib.grafs_pull.argtypes = [vp] * 9 + [vp, vp, i32, i32, i32, f32,
+                                          i32] + slots
+    lib.grafs_push.argtypes = [vp] * 8 + [vp, vp, i32, i32, i32, f32] + slots
+    lib.grafs_resolve.argtypes = [vp] * 7 + [i32] * 5 + slots
     lib.grafs_walk_attributes.argtypes = [vp]
     for fn in (lib.grafs_pull, lib.grafs_push, lib.grafs_resolve,
                lib.grafs_walk_attributes):

@@ -30,6 +30,13 @@ tile, by a vote of the whole block, whether a real slot has an active
 source; the frontier's pull tile activity then needs no torch gather over
 the rectangle.
 
+Batched queries: the three sweeps take a leading slot axis.  With [S,
+n_pad] states a call sweeps S queries over the one shared layout in one
+launch, each slot with its own frontier, tile activity and outputs (or
+one every slot shares), and each slot's outputs are the bits of its solo
+sweep; the plain version of a batch is the solo plain version per slot,
+stacked.
+
 ``ell_level_reduce`` (replaces ``_level_kernel``) is the per-level reference
 sweep outside the main path: one lex level per call into a [n_pad]
 vector, its kernels generated per (P expressions, monoid, mode) by
@@ -56,6 +63,8 @@ the push resolutions; the other tile-activity helpers are torch ops
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -73,6 +82,20 @@ _LANES = 32
 _SLOTS = BLOCK_E // _LANES
 _MAX_PTRS = 16
 _PLAIN_CHUNK = 1 << 24           # slots per plain-version chunk (memory cap)
+# A batched launch walks its (tile, slot) items tile-major, so that a
+# layout tile comes from device memory once for all its query slots, unless
+# the slots' vertex words (each component's state and one more vector, the
+# frontier or the push activity; the words the slots gather at random grow
+# with them) exceed half the card's L2 together: then slot-major, one
+# slot's words in L2 at a time.  On an H100 (50 MB of L2) with the 2^21-
+# vertex uniform graph (8 slots of 24 MB), tile-major took the batched BFS
+# pull 2.5 times as long as 8 solo launches, slot-major 1.1 to 1.2 times;
+# on rmat_graph(65536, 1048576) (8 slots of 0.8 MB) tile-major was the
+# faster order for every kernel (benchmarks/torch_batch_probe.py, PERF.md
+# §6).  Where the crossover lies between those two points was not
+# measured; half the L2 is a guess inside that range.
+# Tests and probes force an order: "tile" or "slot"; None decides by size.
+_SLOT_ORDER: Optional[str] = None
 
 # boolean monoids run as int32 min/max inside the kernels
 _INT_OP = {"or": "max", "and": "min"}
@@ -147,10 +170,12 @@ class SweepRound:
     def walk_attributes(self) -> dict:
         """Registers per thread and grid (blocks) of the kernels that walk
         their tiles on a grid sized to the card: push, resolve, and pull
-        with the given and with the derived activity (needs the card)."""
-        out = (ctypes.c_int * 8)()
+        with the given and with the derived activity, solo and batched
+        (needs the card)."""
+        out = (ctypes.c_int * 16)()
         _raise_on(self.library().grafs_walk_attributes(out), "attributes")
         names = ("push", "resolve", "pull", "pull_derived")
+        names += tuple(f"batched_{k}" for k in names)
         return {f"{k}_{what}": out[2 * i + w] for i, k in enumerate(names)
                 for w, what in enumerate(("registers", "grid"))}
 
@@ -228,15 +253,82 @@ def _ptrs(tensors):
     return arr
 
 
-def _check_layout(rect, tile_act):
+def _check_layout(rect, tile_act, lead=()):
+    """Check a layout rectangle and the tile activity walked over it
+    (shared, or one per query slot when ``lead`` is the slot axis); returns
+    the activity's slot stride."""
     n_pad, width = rect.shape
     if n_pad % BLOCK_V or width % BLOCK_E:
         raise ValueError(f"layout {n_pad}×{width} is not a whole number of "
                          f"({BLOCK_V}, {BLOCK_E}) tiles")
     if n_pad * width >= 2 ** 31:
         raise ValueError(f"layout {n_pad}×{width} overflows int32 indexing")
-    _check("tile_act", tile_act, torch.int32,
-           (n_pad // BLOCK_V, width // BLOCK_E))
+    return _slot_stride("tile_act", tile_act, torch.int32,
+                        (n_pad // BLOCK_V, width // BLOCK_E), lead)
+
+
+# ---------------------------------------------------------------------------
+# The slot axis of batched sweeps.  A batched sweep takes its states with a
+# leading axis of S query slots (one [S, n_pad] array per component) and
+# returns its outputs with that axis; each per-slot input (frontier, tile
+# activity, candidates) comes with the axis, or without it when every slot
+# shares it.  The layout is always shared.  On the card one launch covers
+# every slot; the plain version is the solo plain version per slot,
+# stacked.
+# ---------------------------------------------------------------------------
+
+def _lead(states):
+    """The slot axis of a sweep: ``(S,)`` for [S, n_pad] states, ``()``
+    for a solo sweep's [n_pad] states."""
+    return tuple(states[0].shape[:1]) if states and states[0].dim() == 2 \
+        else ()
+
+
+def _slot(t, solo_ndim: int, s: int):
+    """Slot ``s``'s part of a per-slot input, which may be shared (it then
+    has its solo number of axes, ``solo_ndim``)."""
+    return t[s] if t.dim() == solo_ndim + 1 else t
+
+
+def _slot_stride(name, t, dtype, shape, lead) -> int:
+    """Check a per-slot card input, ``lead + shape`` (one array per slot)
+    or ``shape`` (one array every slot shares); its slot stride in
+    elements, 0 when shared."""
+    shape = tuple(shape)
+    if lead and t.dim() == len(shape) + 1:
+        _check(name, t, dtype, lead + shape)
+        return math.prod(shape)
+    _check(name, t, dtype, shape)
+    return 0
+
+
+def _slots(lead, device, gathered=0, tiles=0, act_out=0, active=0, state=0,
+           out=0, push_act=0, cand=0):
+    """A launch's slot count, its item order and its per-slot strides, in
+    the order of ``struct Slots`` (csrc/edge_sweep.cuh).  ``gathered`` is
+    one slot's vertex words (its states and frontier or push activity):
+    the walk goes slot-major where the slots' together exceed half the L2
+    of ``device``."""
+    n = lead[0] if lead else 1
+    strides = (ctypes.c_longlong * 7)(tiles, act_out, active, state, out,
+                                      push_act, cand)
+    if _SLOT_ORDER is not None:
+        slot_major = _SLOT_ORDER == "slot"
+    else:
+        slot_major = n > 1 and n * gathered > _l2_bytes(device) // 2
+    return n, int(slot_major), strides
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def _stack_slots(solo, n: int):
+    """The batched form of a plain version: ``solo(s)`` (a list of arrays)
+    for each of the ``n`` slots, stacked array by array."""
+    per = [solo(s) for s in range(n)]
+    return [torch.stack(cols) for cols in zip(*per)]
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +344,12 @@ def pull_sweep(rnd: SweepRound, tile_act, srcs, weight, capacity, mask,
     ``states`` lists the [n_pad] state vectors in ``rnd.comps_order``;
     ``active`` is int32.  A tile that ``tile_act`` skips holds the
     identities (has-pred 0).  ``out``, preallocated arrays of those shapes
-    and dtypes, receives the result."""
+    and dtypes, receives the result.
+
+    Batched: with [S, n_pad] states the sweep runs S query slots in one
+    launch and every output gains the leading slot axis; ``active`` is
+    [S, n_pad] and ``tile_act`` [S, n_i, n_j], or either without the axis
+    when the slots share it."""
     return _pull(rnd, tile_act, False, srcs, weight, capacity, mask, active,
                  outdeg, wdeg, states, nv, need_hp, out)[0]
 
@@ -266,7 +363,9 @@ def pull_sweep_frontier(rnd: SweepRound, tiles_static, srcs, weight,
     tile_act)``: ``tile_act`` is the int32 [n_i, n_j] frontier tile
     activity, bitwise ``tile_activity(srcs, mask, tile_nnz, active)``, and
     ``outs`` what ``pull_sweep`` returns for it.  ``out`` lists
-    preallocated arrays for ``outs`` followed by one for ``tile_act``."""
+    preallocated arrays for ``outs`` followed by one for ``tile_act``.
+    Batched as ``pull_sweep`` (``tile_act`` per slot, ``tiles_static``
+    shared)."""
     return _pull(rnd, tiles_static, True, srcs, weight, capacity, mask,
                  active, outdeg, wdeg, states, nv, need_hp, out)
 
@@ -278,8 +377,12 @@ def _pull(rnd, tiles, derive, srcs, weight, capacity, mask, active, outdeg,
     activity or None)."""
     n_pad, width = srcs.shape
     n_i, n_j = n_pad // BLOCK_V, width // BLOCK_E
+    lead = _lead(states)
     name = "tiles_static" if derive else "tile_act"
-    if tuple(tiles.shape) != (n_i, n_j) or tiles.dtype != torch.int32:
+    per_slot = bool(lead) and not derive and tiles.dim() == 3
+    if tuple(tiles.shape[per_slot:]) != (n_i, n_j) or \
+            tiles.dtype != torch.int32 or \
+            (per_slot and tuple(tiles.shape[:1]) != lead):
         raise ValueError(f"{name} must be int32 of the layout's tile grid "
                          f"{(n_i, n_j)}, got {tiles.dtype} "
                          f"{tuple(tiles.shape)}")
@@ -299,28 +402,28 @@ def _pull(rnd, tiles, derive, srcs, weight, capacity, mask, active, outdeg,
                 o.copy_(g)
             got = list(out)
         return (got[:-1], got[-1]) if derive else (got, None)
-    _check_layout(srcs, tiles)
+    t_stride = _check_layout(srcs, tiles, lead)
     for nm, t, dt in (("srcs", srcs, torch.int32),
                       ("weight", weight, torch.float32),
                       ("capacity", capacity, torch.float32),
                       ("mask", mask, torch.bool)):
         _check(nm, t, dt, (n_pad, width))
-    _check("active", active, torch.int32, (n_pad,))
+    a_stride = _slot_stride("active", active, torch.int32, (n_pad,), lead)
     _check("outdeg", outdeg, torch.float32, (n_pad,))
     _check("wdeg", wdeg, torch.float32, (n_pad,))
     for k, (st, dt) in enumerate(zip(states, rnd.dtypes)):
-        _check(f"state[{k}]", st, dt, (n_pad,))
+        _check(f"state[{k}]", st, dt, lead + (n_pad,))
     if out is None:
-        out = [torch.empty((n_pad, n_j), dtype=dt, device=srcs.device)
+        out = [torch.empty(lead + (n_pad, n_j), dtype=dt, device=srcs.device)
                for dt in dtypes]
         if derive:
-            out.append(torch.empty((n_i, n_j), dtype=torch.int32,
+            out.append(torch.empty(lead + (n_i, n_j), dtype=torch.int32,
                                    device=srcs.device))
     for k, o in enumerate(out):
         if k < len(dtypes):
-            _check(f"out[{k}]", o, dtypes[k], (n_pad, n_j))
+            _check(f"out[{k}]", o, dtypes[k], lead + (n_pad, n_j))
         else:
-            _check(f"out[{k}]", o, torch.int32, (n_i, n_j))
+            _check(f"out[{k}]", o, torch.int32, lead + (n_i, n_j))
     outs, act_out = (list(out[:-1]), out[-1]) if derive \
         else (list(out), None)
     lib = rnd.library()
@@ -329,7 +432,10 @@ def _pull(rnd, tiles, derive, srcs, weight, capacity, mask, active, outdeg,
         srcs.data_ptr(), weight.data_ptr(), capacity.data_ptr(),
         mask.data_ptr(), active.data_ptr(), outdeg.data_ptr(),
         wdeg.data_ptr(), _ptrs(states), _ptrs(outs), n_i * n_j, n_j, width,
-        float(nv), int(need_hp), _stream(srcs))
+        float(nv), int(need_hp),
+        *_slots(lead, srcs.device, gathered=n_pad * 4 * (len(states) + 1),
+                tiles=t_stride, act_out=n_i * n_j, active=a_stride,
+                state=n_pad, out=n_pad * n_j), _stream(srcs))
     _raise_on(status, "pull")
     LAUNCHES["pull"] += 1
     return outs, act_out
@@ -337,6 +443,12 @@ def _pull(rnd, tiles, derive, srcs, weight, capacity, mask, active, outdeg,
 
 def _pull_plain(rnd, tile_act, srcs, weight, capacity, mask, active, outdeg,
                 wdeg, states, nv, need_hp):
+    lead = _lead(states)
+    if lead:
+        return _stack_slots(lambda s: _pull_plain(
+            rnd, _slot(tile_act, 2, s), srcs, weight, capacity, mask,
+            _slot(active, 1, s), outdeg, wdeg, [st[s] for st in states], nv,
+            need_hp), lead[0])
     n_pad, width = srcs.shape
     nv_t = torch.tensor(float(nv), dtype=torch.float32, device=srcs.device)
     parts = []
@@ -385,7 +497,9 @@ def push_sweep(rnd: SweepRound, tile_act, dsts, weight, capacity, mask,
     ``out``, one preallocated [n_pad, width] array per component, receives
     the candidates; a caller that reads the whole rectangle passes it
     identity-filled.  The plain version fills skipped tiles with
-    identities."""
+    identities.  Batched as ``pull_sweep``: [S, n_pad] states give [S,
+    n_pad, width] candidates."""
+    lead = _lead(states)
     if not dsts.is_cuda:
         got = _push_plain(rnd, tile_act, dsts, weight, capacity, mask,
                           active, outdeg, wdeg, states, nv)
@@ -395,32 +509,34 @@ def push_sweep(rnd: SweepRound, tile_act, dsts, weight, capacity, mask,
             o.copy_(g)
         return list(out)
     n_pad, width = dsts.shape
-    _check_layout(dsts, tile_act)
+    t_stride = _check_layout(dsts, tile_act, lead)
     for name, t, dt in (("dsts", dsts, torch.int32),
                         ("weight", weight, torch.float32),
                         ("capacity", capacity, torch.float32),
                         ("mask", mask, torch.bool)):
         _check(name, t, dt, (n_pad, width))
-    _check("active", active, torch.int32, (n_pad,))
+    a_stride = _slot_stride("active", active, torch.int32, (n_pad,), lead)
     _check("outdeg", outdeg, torch.float32, (n_pad,))
     _check("wdeg", wdeg, torch.float32, (n_pad,))
     for k, (st, dt) in enumerate(zip(states, rnd.dtypes)):
-        _check(f"state[{k}]", st, dt, (n_pad,))
+        _check(f"state[{k}]", st, dt, lead + (n_pad,))
     if out is None:
-        out = [torch.empty((n_pad, width), dtype=dt, device=dsts.device)
-               for dt in rnd.dtypes]
+        out = [torch.empty(lead + (n_pad, width), dtype=dt,
+                           device=dsts.device) for dt in rnd.dtypes]
     elif len(out) != len(rnd.dtypes):
         raise ValueError(f"out needs {len(rnd.dtypes)} arrays, got "
                          f"{len(out)}")
     for k, (o, dt) in enumerate(zip(out, rnd.dtypes)):
-        _check(f"out[{k}]", o, dt, (n_pad, width))
+        _check(f"out[{k}]", o, dt, lead + (n_pad, width))
     lib = rnd.library()
     n_i, n_j = n_pad // BLOCK_V, width // BLOCK_E
     status = lib.grafs_push(
         tile_act.data_ptr(), dsts.data_ptr(), weight.data_ptr(),
         capacity.data_ptr(), mask.data_ptr(), active.data_ptr(),
         outdeg.data_ptr(), wdeg.data_ptr(), _ptrs(states), _ptrs(out),
-        n_i * n_j, n_j, width, float(nv), _stream(dsts))
+        n_i * n_j, n_j, width, float(nv),
+        *_slots(lead, dsts.device, tiles=t_stride, active=a_stride,
+                state=n_pad, out=n_pad * width), _stream(dsts))
     _raise_on(status, "push")
     LAUNCHES["push"] += 1
     return list(out)
@@ -428,6 +544,12 @@ def push_sweep(rnd: SweepRound, tile_act, dsts, weight, capacity, mask,
 
 def _push_plain(rnd, tile_act, dsts, weight, capacity, mask, active, outdeg,
                 wdeg, states, nv):
+    lead = _lead(states)
+    if lead:
+        return _stack_slots(lambda s: _push_plain(
+            rnd, _slot(tile_act, 2, s), dsts, weight, capacity, mask,
+            _slot(active, 1, s), outdeg, wdeg, [st[s] for st in states],
+            nv), lead[0])
     n_pad, width = dsts.shape
     nv_t = torch.tensor(float(nv), dtype=torch.float32, device=dsts.device)
     parts = []
@@ -456,27 +578,30 @@ def _push_plain(rnd, tile_act, dsts, weight, capacity, mask, active, outdeg,
 # The dst-sorted push resolution (replaces edge_reduce.py::_resolve_kernel).
 # ---------------------------------------------------------------------------
 
-def _check_out_layout(cands, push_tile_act, width_out, states, need_hp):
+def _check_out_layout(cands, push_tile_act, width_out, states, need_hp,
+                      lead=()):
     """The out-layout that ``in2out`` indexes: every candidate array is
-    [n_pad_out, width_out] and ``push_tile_act`` its (8, 128) tile grid."""
+    [n_pad_out, width_out] (per slot, under ``lead``) and ``push_tile_act``
+    its (8, 128) tile grid."""
     if width_out <= 0 or width_out % BLOCK_E:
         raise ValueError(f"width_out {width_out} is not a positive multiple "
                          f"of {BLOCK_E}")
-    n_out = cands[0].shape[0]
+    n_out = cands[0].shape[-2]
     for k, c in enumerate(cands):
-        if tuple(c.shape) != (n_out, width_out):
+        if tuple(c.shape) != lead + (n_out, width_out):
             raise ValueError(f"cands[{k}] has shape {tuple(c.shape)}, not "
-                             f"(n_pad, width_out) = ({n_out}, {width_out})")
+                             f"(n_pad, width_out) = ({n_out}, {width_out})"
+                             + (f" per slot of {lead[0]}" if lead else ""))
     want = (n_out // BLOCK_V, width_out // BLOCK_E)
-    if tuple(push_tile_act.shape) != want:
-        raise ValueError(f"push_tile_act has shape "
-                         f"{tuple(push_tile_act.shape)}, but the out-layout "
-                         f"{n_out}×{width_out} has {want} tiles")
+    got = tuple(push_tile_act.shape)
+    if got not in (want, lead + want):
+        raise ValueError(f"push_tile_act has shape {got}, but the "
+                         f"out-layout {n_out}×{width_out} has {want} tiles")
     if need_hp:
         for k, st in enumerate(states):
-            if tuple(st.shape) != (n_out,):
-                raise ValueError(f"state[{k}] must have shape ({n_out},), "
-                                 f"got {tuple(st.shape)}")
+            if tuple(st.shape) != lead + (n_out,):
+                raise ValueError(f"state[{k}] must have shape "
+                                 f"{lead + (n_out,)}, got {tuple(st.shape)}")
 
 
 def resolve_sweep(rnd: SweepRound, tile_act, valid, in2out, cands,
@@ -492,21 +617,29 @@ def resolve_sweep(rnd: SweepRound, tile_act, valid, in2out, cands,
     1 where a valid slot's source row (``in2out // width_out``) holds a
     non-⊥ state in ``states`` (``rnd.comps_order``).  The probe covers the
     tiles ``tile_act`` keeps (a skipped tile's cells are 0), so a caller
-    wanting the reference's booleans passes every live tile."""
+    wanting the reference's booleans passes every live tile.
+
+    Batched: [S, n_pad_out, width_out] candidates (and [S, n_pad_out]
+    states) run S query slots in one launch and every output gains the
+    leading slot axis; ``tile_act`` and ``push_tile_act`` come per slot or
+    shared."""
     if len(cands) != len(rnd.dtypes) or (need_hp and
                                          len(states) != len(rnd.dtypes)):
         raise ValueError(f"resolve_sweep needs {len(rnd.dtypes)} candidate "
                          f"arrays (and states with need_hp), got "
                          f"{len(cands)} and {len(states)}")
-    _check_out_layout(cands, push_tile_act, width_out, states, need_hp)
+    lead = tuple(cands[0].shape[:1]) if cands[0].dim() == 3 else ()
+    _check_out_layout(cands, push_tile_act, width_out, states, need_hp, lead)
     if not valid.is_cuda:
         return _resolve_plain(rnd, tile_act, valid, in2out, cands,
                               push_tile_act, width_out, states, need_hp)
     n_pad, width = valid.shape
-    _check_layout(valid, tile_act)
+    t_stride = _check_layout(valid, tile_act, lead)
     _check("valid", valid, torch.bool, (n_pad, width))
     _check("in2out", in2out, torch.int32, (n_pad, width))
-    _check("push_tile_act", push_tile_act, torch.int32)
+    n_out = cands[0].shape[-2]
+    p_stride = _slot_stride("push_tile_act", push_tile_act, torch.int32,
+                            (n_out // BLOCK_V, width_out // BLOCK_E), lead)
     for k, (c, dt) in enumerate(zip(cands, rnd.dtypes)):
         _check(f"cands[{k}]", c, dt)
     if need_hp:
@@ -514,17 +647,20 @@ def resolve_sweep(rnd: SweepRound, tile_act, valid, in2out, cands,
             _check(f"state[{k}]", st, dt)
     lib = rnd.library()
     n_i, n_j = n_pad // BLOCK_V, width // BLOCK_E
-    outs = [torch.empty((n_pad, n_j), dtype=rnd.dtypes[pos],
+    outs = [torch.empty(lead + (n_pad, n_j), dtype=rnd.dtypes[pos],
                         device=valid.device)
             for spec in rnd.plan_specs for pos, _op in spec]
     if need_hp:
-        outs += [torch.empty((n_pad, n_j), dtype=torch.int32,
+        outs += [torch.empty(lead + (n_pad, n_j), dtype=torch.int32,
                              device=valid.device) for _ in states]
     status = lib.grafs_resolve(
         tile_act.data_ptr(), valid.data_ptr(), in2out.data_ptr(),
         push_tile_act.data_ptr(), _ptrs(cands),
         _ptrs(states if need_hp else ()), _ptrs(outs), n_i * n_j, n_j,
-        width, int(width_out), int(need_hp), _stream(valid))
+        width, int(width_out), int(need_hp),
+        *_slots(lead, valid.device, gathered=n_out * 4 * (len(cands) + 1),
+                tiles=t_stride, state=n_out, out=n_pad * n_j,
+                push_act=p_stride, cand=n_out * width_out), _stream(valid))
     _raise_on(status, "resolve")
     LAUNCHES["resolve"] += 1
     return outs
@@ -532,6 +668,12 @@ def resolve_sweep(rnd: SweepRound, tile_act, valid, in2out, cands,
 
 def _resolve_plain(rnd, tile_act, valid, in2out, cands, push_tile_act,
                    width_out, states=(), need_hp=False):
+    if cands[0].dim() == 3:
+        return _stack_slots(lambda s: _resolve_plain(
+            rnd, _slot(tile_act, 2, s), valid, in2out, [c[s] for c in cands],
+            _slot(push_tile_act, 2, s), width_out,
+            [st[s] for st in states] if need_hp else (), need_hp),
+            cands[0].shape[0])
     n_pad, width = valid.shape
     flat = [c.reshape(-1) for c in cands]
     ran_tiles = push_tile_act.reshape(-1) != 0
@@ -740,16 +882,19 @@ def _level_plain(kop, p_exprs, states, idents, srcs, weight, capacity, mask,
 
 def _fold_tile_candidates(rnd: SweepRound, outs):
     """Cross-tile lexicographic resolution of per-tile candidates
-    ``outs[level][n_pad, n_tiles]``: the ``plan_merge`` recurrence over the
-    tile axis, shared by the pull sweep and the sorted push resolution so
-    both directions reduce with the identical tree.  Returns ({comp: [n_pad]
-    reduction}, levels consumed)."""
+    ``outs[level][..., n_pad, n_tiles]``: the ``plan_merge`` recurrence over
+    the tile axis, shared by the pull sweep and the sorted push resolution
+    so both directions reduce with the identical tree.  A batch folds on
+    its [S·n_pad, n_tiles] view, so every row reduces as a solo fold
+    does.  Returns ({comp: [..., n_pad] reduction}, levels consumed)."""
     red, oi = {}, 0
+    lead, n_t = outs[0].shape[:-1], outs[0].shape[-1]
     for spec, mapped in zip(rnd.plans, rnd.plan_specs):
-        tie = torch.ones(outs[oi].shape, dtype=torch.bool,
+        tie = torch.ones((math.prod(lead), n_t), dtype=torch.bool,
                          device=outs[oi].device)
         for (c, _op), (pos, op) in zip(spec, mapped):
-            vals = torch.where(tie, outs[oi], rnd.idents[pos])
+            vals = torch.where(tie, outs[oi].reshape(-1, n_t),
+                               rnd.idents[pos])
             if op == "min":
                 best = vals.amin(dim=1)
             elif op == "max":
@@ -758,7 +903,7 @@ def _fold_tile_candidates(rnd: SweepRound, outs):
                 best = vals.sum(dim=1, dtype=vals.dtype)
             else:
                 best = vals.prod(dim=1, dtype=vals.dtype)
-            red[c] = best
+            red[c] = best.reshape(lead)
             tie = tie & (vals == best[:, None])
             oi += 1
     return red, oi
@@ -767,7 +912,11 @@ def _fold_tile_candidates(rnd: SweepRound, outs):
 def tile_activity(srcs, mask, tile_nnz, active_i32, block_v: int = BLOCK_V,
                   block_e: int = BLOCK_E):
     """Pull-side tile activity: a tile runs iff it has real slots AND at
-    least one frontier-active source."""
+    least one frontier-active source.  An [S, n_pad] frontier gives one
+    activity per slot."""
+    if active_i32.dim() == 2:
+        return torch.stack([tile_activity(srcs, mask, tile_nnz, a, block_v,
+                                          block_e) for a in active_i32])
     n_i, n_j = tile_nnz.shape
     act = (active_i32.index_select(0, srcs.reshape(-1)) != 0) \
         .reshape(srcs.shape) & mask
@@ -777,20 +926,24 @@ def tile_activity(srcs, mask, tile_nnz, active_i32, block_v: int = BLOCK_V,
 
 def tile_activity_push(tile_nnz, active_i32, block_v: int = BLOCK_V):
     """Push-side tile activity over the out-layout: a tile is active iff its
-    row block holds a frontier-active source (no gather)."""
+    row block holds a frontier-active source (no gather).  An [S, n_pad]
+    frontier gives one activity per slot."""
     n_i, _n_j = tile_nnz.shape
-    row_act = (active_i32.reshape(n_i, block_v) != 0).any(dim=1)
-    return ((tile_nnz > 0) & row_act[:, None]).to(torch.int32)
+    lead = active_i32.shape[:-1]
+    row_act = (active_i32.reshape(*lead, n_i, block_v) != 0).any(dim=-1)
+    return ((tile_nnz > 0) & row_act[..., None]).to(torch.int32)
 
 
 def resolution_tile_activity(res_contrib, push_tile_act, res_tile_nnz):
     """Resolution-tile activity: a tile runs iff it has real slots and one
-    of its contributing out-tiles (``PushResolution.contrib``) ran."""
+    of its contributing out-tiles (``PushResolution.contrib``) ran.  An
+    [S, n_i, n_j] push activity gives one activity per slot."""
     n_i, n_j = res_tile_nnz.shape
-    flat_act = push_tile_act.reshape(-1)
-    hit = (res_contrib >= 0) & \
-        (flat_act[res_contrib.clamp(0, flat_act.shape[0] - 1).long()] != 0)
-    any_act = hit.any(dim=1).reshape(n_i, n_j)
+    lead = push_tile_act.shape[:-2]
+    flat_act = push_tile_act.reshape(*lead, -1)
+    idx = res_contrib.clamp(0, flat_act.shape[-1] - 1).long()
+    hit = (res_contrib >= 0) & (flat_act[..., idx] != 0)
+    any_act = hit.any(dim=-1).reshape(*lead, n_i, n_j)
     return ((res_tile_nnz > 0) & any_act).to(torch.int32)
 
 
@@ -809,7 +962,7 @@ def fused_ell_sweep(rnd: SweepRound, srcs, weight, capacity, mask, tile_act,
     hp = {}
     if need_haspred:
         for k, c in enumerate(rnd.comps_order):
-            hp[c] = outs[oi + k].amax(dim=1) > 0
+            hp[c] = outs[oi + k].amax(dim=-1) > 0
     if return_candidates:
         return red, hp, outs
     return red, hp
@@ -855,9 +1008,10 @@ def fused_ell_push_sweep(rnd: SweepRound, dsts, weight, capacity, mask,
                          "res_tile_act) from structure.PushResolution")
     n_pad, width = dsts.shape
     st = [states[c] for c in rnd.comps_order]
+    lead = _lead(st)
     filled = None
     if resolution == "scatter":
-        filled = [torch.full((n_pad, width), ident, dtype=dt,
+        filled = [torch.full(lead + (n_pad, width), ident, dtype=dt,
                              device=dsts.device)
                   for dt, ident in zip(rnd.dtypes, rnd.idents)]
     cands = push_sweep(rnd, tile_act, dsts, weight, capacity, mask,
@@ -871,34 +1025,48 @@ def fused_ell_push_sweep(rnd: SweepRound, dsts, weight, capacity, mask,
         red, oi = _fold_tile_candidates(rnd, outs)
         if need_haspred:
             for k, c in enumerate(rnd.comps_order):
-                hp[c] = outs[oi + k].amax(dim=1) > 0
+                hp[c] = outs[oi + k].amax(dim=-1) > 0
+    elif lead:
+        per = [_scatter_resolve(rnd, dsts, mask, [c[s] for c in cands],
+                                [x[s] for x in st], need_haspred)
+               for s in range(lead[0])]
+        red = {c: torch.stack([r[c] for r, _h in per]) for c in per[0][0]}
+        hp = {c: torch.stack([h[c] for _r, h in per]) for c in per[0][1]}
     else:
-        flat_dst = dsts.reshape(-1)
-        red = {}
-        for spec in rnd.plans:
-            tie = torch.ones(flat_dst.shape, dtype=torch.bool,
-                             device=dsts.device)
-            for li, (c, op) in enumerate(spec):
-                pos = rnd.comps_order.index(c)
-                ident = rnd.idents[pos]
-                flat = cands[pos].reshape(-1)
-                init = torch.full((n_pad,), ident, dtype=flat.dtype,
-                                  device=dsts.device)
-                vals = torch.where(tie, flat, ident)
-                prim = segment.scatter_reduce(op, init, vals, flat_dst)
-                red[c] = prim
-                if li + 1 < len(spec):
-                    tie = tie & (vals == prim[flat_dst.long()])
-        if need_haspred:
-            # Def. 4's CPreds ≠ ∅ probe from "source state non-⊥" over real
-            # out-edges, as a scatter-OR in torch.
-            for k, c in enumerate(rnd.comps_order):
-                nonbot = (mask & (states[c][:, None] != rnd.idents[k])) \
-                    .to(torch.int32)
-                hp[c] = segment.scatter_reduce(
-                    "or", torch.zeros((n_pad,), dtype=torch.int32,
-                                      device=dsts.device),
-                    nonbot.reshape(-1), dsts.reshape(-1)) > 0
+        red, hp = _scatter_resolve(rnd, dsts, mask, cands, st, need_haspred)
     if return_candidates:
         return red, hp, cands
+    return red, hp
+
+
+def _scatter_resolve(rnd: SweepRound, dsts, mask, cands, st, need_haspred):
+    """One query's ``"scatter"`` resolution of its [n_pad, width] push
+    candidates, and its has-pred as a scatter-OR: ``(red, hp)``."""
+    n_pad = dsts.shape[0]
+    flat_dst = dsts.reshape(-1)
+    red, hp = {}, {}
+    for spec in rnd.plans:
+        tie = torch.ones(flat_dst.shape, dtype=torch.bool,
+                         device=dsts.device)
+        for li, (c, op) in enumerate(spec):
+            pos = rnd.comps_order.index(c)
+            ident = rnd.idents[pos]
+            flat = cands[pos].reshape(-1)
+            init = torch.full((n_pad,), ident, dtype=flat.dtype,
+                              device=dsts.device)
+            vals = torch.where(tie, flat, ident)
+            prim = segment.scatter_reduce(op, init, vals, flat_dst)
+            red[c] = prim
+            if li + 1 < len(spec):
+                tie = tie & (vals == prim[flat_dst.long()])
+    if need_haspred:
+        # Def. 4's CPreds ≠ ∅ probe from "source state non-⊥" over real
+        # out-edges, as a scatter-OR in torch.
+        for k, c in enumerate(rnd.comps_order):
+            nonbot = (mask & (st[k][:, None] != rnd.idents[k])) \
+                .to(torch.int32)
+            hp[c] = segment.scatter_reduce(
+                "or", torch.zeros((n_pad,), dtype=torch.int32,
+                                  device=dsts.device),
+                nonbot.reshape(-1), dsts.reshape(-1)) > 0
     return red, hp

@@ -1,7 +1,7 @@
 """The single-device fixpoint of the ``cuda`` engine.
 
-The port of ``repro.kernels.ops.iterate_pallas`` (single-device, unbatched,
-unchunked): the same fixpoint semantics as ``iterate.iterate_graph``, with
+The port of ``repro.kernels.ops.iterate_pallas`` and ``iterate_pallas_batch``
+(single-device): the same fixpoint semantics as ``iterate.iterate_graph``, with
 every edge sweep executed by the hand-written CUDA kernels of
 ``edge_reduce``.  One iteration launches either the pull kernel or the
 push kernel followed by the sorted-resolution kernel.
@@ -28,8 +28,13 @@ reference's ``(init, step)`` pair: a per-call set-up (``_Fixpoint``),
 ``_init_carry`` and ``_advance(carry, k_stop)``, the one loop body.  The
 monolithic query is ``_advance(_init_carry(), max_iter)``; a chunked one
 (checkpointed, resumed or warm-started) calls ``_advance`` once per chunk
-on the same carry, so both are bitwise the same.  ``delta=`` seeding and
-batches belong to later slices.
+on the same carry, so both are bitwise the same.  ``delta=`` seeding
+belongs to a later slice.
+
+``iterate_cuda_batch`` (the port of ``iterate_pallas_batch``) runs B
+queries of one round over the one shared layout: the carry gains a slot
+axis, each live slot picks its own direction, and one iteration launches
+at most one pull, one push and one resolve kernel for the whole batch.
 
 ``embedding_bag`` and ``ell_softmax`` are the embedding-bag and ELL-softmax
 kernels' entry points under the names the reference's ``ops`` gives them.
@@ -355,23 +360,25 @@ def _from_snapshot(snap) -> tuple:
 
 def _warm_start_carry(carry, comps, init_state, n) -> tuple:
     """Override the initial carry's state with per-component [n] tensors or
-    arrays, cast to each component's dtype on the carry's device: padding
-    keeps the identity, and the frontier stays all ones (padding included)
-    so the first sweep re-derives the true active set."""
+    arrays ([B, n] for a batch's carry, one row per slot), cast to each
+    component's dtype on the carry's device: padding keeps the identity,
+    and the frontier stays all ones (padding included) so the first sweep
+    re-derives the true active set."""
     init_state = tuple(init_state)
     if len(init_state) != len(comps):
         raise ValueError(f"init_state has {len(init_state)} arrays for "
                          f"{len(comps)} components")
+    want = tuple(carry[1].shape[:-1]) + (n,)
     new_state = []
     for ref, cr, arr in zip(carry[0], comps, init_state):
         a = arr if isinstance(arr, torch.Tensor) else \
             torch.from_numpy(np.array(arr))
         a = a.to(device=ref.device, dtype=ref.dtype)
-        if tuple(a.shape) != (n,):
+        if tuple(a.shape) != want:
             raise ValueError(f"init_state for component {cr.idx} has shape "
-                             f"{tuple(a.shape)}, expected ({n},)")
+                             f"{tuple(a.shape)}, expected {want}")
         s = ref.clone()
-        s[:n] = a
+        s[..., :n] = a
         new_state.append(s)
     return (tuple(new_state),) + tuple(carry[1:])
 
@@ -391,7 +398,8 @@ def _sweep(fx: _Fixpoint, d, state_d, active_i32, tile_act, need_hp):
         red, hp = _er.fused_ell_push_sweep(
             fx.rnd, *args, resolution="sorted",
             res=(res.in2out, res.valid, res_act))
-        res_w = (res.tile_nnz.to(torch.int64) * res_act).sum()
+        # per query slot in a batch (res_act [S, n_i, n_j]), a 0-d sum solo
+        res_w = (res.tile_nnz.to(torch.int64) * res_act).sum((-2, -1))
         return red, hp, res_w, res_w
     red, hp = _er.fused_ell_push_sweep(fx.rnd, *args, resolution="scatter")
     return red, hp, e.nbrs.numel(), 0
@@ -482,4 +490,220 @@ def _finish(fx: _Fixpoint, carry) -> iterate.IterationResult:
     out.pull_iters = k - pushes
     out.resolve_work = int(res_work)
     out.gather_work = int(gather_work)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Batched queries: B sources of one round over the one shared layout.
+# ---------------------------------------------------------------------------
+
+def iterate_cuda_batch(g: Graph, comps, plans, sources,
+                       max_iter: Optional[int] = None, tol: float = 0.0,
+                       direction: str = "auto",
+                       dense_threshold: float = DENSE_FRONTIER,
+                       switch_k="auto",
+                       push_resolution: str = PUSH_RESOLUTION,
+                       divergence_sentinel: bool = True, init_state=None,
+                       plan=None) -> iterate.IterationResult:
+    """B queries of one fused round, each to its own fixpoint, with one
+    launch of each sweep kernel per iteration for the whole batch: the
+    port of ``repro.kernels.ops.iterate_pallas_batch``.
+
+    ``sources`` is a [B] sequence of query sources (applied to every
+    sourced component) or a [B, n_comps] array of per-component sources.
+    The carry is ``iterate_cuda``'s nine fields with a slot axis: [B,
+    n_pad] state per component and frontier, and per slot the iteration
+    count, the work counters, the divergence flag and the residual.  Each
+    iteration reads every slot's frontier count and edge mass in one host
+    read; each live slot takes its own direction by the Gemini rule, the
+    pulling slots share one pull launch and the pushing ones one push and
+    one resolve launch.  A slot whose frontier is empty, or that reached
+    ``max_iter``, is frozen: its carry no longer changes.  Inside a sweep a
+    slot computes what its solo query computes, and the bookkeeping around
+    it is elementwise per slot, so every slot's result is bitwise its solo
+    ``iterate_cuda`` query's, counters included.
+
+    ``init_state`` warm-starts every slot from one per-component [B, n]
+    array (the continuous-batching join hook): each row overrides that
+    slot's initial state and the frontier starts all ones.  A batch runs
+    whole: no checkpoints, as in the reference ("chunked execution does not
+    batch").  Knobs and ``plan`` act as in ``iterate_cuda``, and so does
+    the kernel-fault rule: a recoverable failure inside the set-up or the
+    loop, out-of-memory aside, is raised as a ``KernelLaunchError``.
+
+    Returns an ``IterationResult`` whose ``state`` entries are [B, n]
+    device tensors and whose ``iterations``, ``edge_work``, ``converged``,
+    ``diverged``, ``active_count``, ``residual``, ``push_iters``,
+    ``pull_iters``, ``resolve_work`` and ``gather_work`` are per-slot
+    lists."""
+    srcs = _batch_sources(comps, sources)
+    with _kernel_faults():
+        fx = _Fixpoint(g, comps, plans, max_iter, tol, direction,
+                       dense_threshold, switch_k, push_resolution,
+                       divergence_sentinel, plan)
+        carry = _init_batch_carry(fx, srcs)
+        if init_state is not None:
+            carry = _warm_start_carry(carry, comps, init_state, g.n)
+        return _finish_batch(fx, _advance_batch(fx, carry))
+
+
+def _batch_sources(comps, sources) -> np.ndarray:
+    """[B] query sources or [B, n_comps] per-component sources → [B,
+    n_comps], −1 for a sourceless component."""
+    srcs = np.asarray(sources, dtype=np.int64)
+    if srcs.ndim == 1:
+        per_comp = np.array([-1 if cr.source is None else 0 for cr in comps])
+        srcs = np.where(per_comp[None, :] < 0, per_comp[None, :],
+                        srcs[:, None])
+    if srcs.ndim != 2 or srcs.shape[1] != len(comps) or not len(srcs):
+        raise ValueError(f"sources must be [B] or [B, {len(comps)}] with "
+                         f"B >= 1, got shape {srcs.shape}")
+    return srcs
+
+
+def _init_batch_carry(fx: _Fixpoint, srcs) -> tuple:
+    """The batch's cold carry: slot b is ``_init_carry`` of its sources
+    (state rows, all-ones frontier, zero counters).  ``k`` and ``pushes``
+    are host lists; the rest lie on the graph's device with a leading
+    slot axis."""
+    dev, b = fx.g.device, len(srcs)
+    rows = [_padded_init_state(
+        fx.comps, fx.g.n, fx.n_pad,
+        {cr.idx: int(s) for cr, s in zip(fx.comps, row)
+         if cr.source is not None}, dev) for row in srcs]
+    state = tuple(torch.stack([r[i] for r in rows])
+                  for i in range(len(fx.comps)))
+    active = torch.ones((b, fx.n_pad), dtype=torch.bool, device=dev)
+    zero = torch.zeros(b, dtype=torch.int64, device=dev)
+    div = torch.zeros(b, dtype=torch.bool, device=dev)
+    resid = torch.zeros(b, dtype=torch.float32, device=dev)
+    return (state, active, [0] * b, zero, [0] * b, zero, zero, div, resid)
+
+
+def _advance_batch(fx: _Fixpoint, carry) -> tuple:
+    """Run every slot to its fixpoint or to ``max_iter``.  Per iteration
+    one host read of every slot's frontier count (and edge mass, where the
+    Gemini switch reads it); the live slots split by direction, each
+    direction one group step (``_batch_step``)."""
+    (state, active, k, work, pushes, res_work, gather_work, div,
+     resid) = carry
+    k, pushes = list(k), list(pushes)
+    switching = fx.idempotent and len(fx.use) == 2
+    while True:
+        if switching and fx.switch_k is not None:
+            n_act, e_frontier = torch.stack(
+                [active.sum(1), (active * fx.out_deg_raw).sum(1)]).tolist()
+        elif switching:
+            n_act = active.sum(1).tolist()
+        else:
+            n_act = active.any(1).tolist()
+        live = [b for b, a in enumerate(n_act) if a and k[b] < fx.max_iter]
+        if not live:
+            break
+        if not switching:
+            groups = ((fx.use[0], live),)
+        else:
+            if fx.switch_k is not None:
+                push = [e_frontier[b] <= fx.num_edges / fx.switch_k
+                        for b in live]
+            else:
+                push = [n_act[b] / fx.g.n <= fx.dense_threshold
+                        for b in live]
+            groups = (("pull", [b for b, p in zip(live, push) if not p]),
+                      ("push", [b for b, p in zip(live, push) if p]))
+        for d, rows in groups:
+            if not rows:
+                continue
+            (state, active, work, res_work, gather_work, div,
+             resid) = _batch_step(fx, d, rows, state, active, work,
+                                  res_work, gather_work, div, resid)
+            for b in rows:
+                pushes[b] += d == "push"
+        for b in live:
+            k[b] += 1
+    return (state, active, k, work, pushes, res_work, gather_work, div,
+            resid)
+
+
+def _batch_step(fx: _Fixpoint, d: str, rows, state, active, work, res_work,
+                gather_work, div, resid) -> tuple:
+    """One iteration of the slots ``rows``, all in direction ``d``: one
+    sweep launch (pull, or push then resolve) over their rows, then the
+    solo loop body's merge, change, sentinel and counters per slot, written
+    back into those rows.  Every other slot's carry stays as it was."""
+    comps, dev = fx.comps, active.device
+    whole = len(rows) == active.shape[0]
+    idx = None if whole else torch.tensor(rows, device=dev)
+
+    def take(t):
+        return t if whole else t.index_select(0, idx)
+
+    def put(t, part):
+        return part if whole else t.index_copy(0, idx, part)
+
+    def add(t, inc):
+        inc = torch.as_tensor(inc, dtype=torch.int64, device=dev) \
+            .expand(len(rows))
+        return t + inc if whole else t.index_add(0, idx, inc.contiguous())
+
+    st = tuple(take(s) for s in state)
+    state_d = {cr.idx: st[i] for i, cr in enumerate(comps)}
+    if fx.idempotent:
+        active_i32 = take(active).to(torch.int32)
+        e = fx.ell[d]
+        if d == "pull":
+            # the kernel derives each slot's frontier tile activity
+            with _step_range("pull"):
+                red, tile_act = _er.fused_ell_sweep_frontier(
+                    fx.rnd, e.nbrs, e.weight, e.capacity, e.mask,
+                    e.tiles_static, state_d, active_i32, fx.out_deg_pad,
+                    fx.wdeg_pad, fx.nv)
+            res_w = gat_w = 0
+        else:
+            with _step_range("push"):
+                tile_act = _er.tile_activity_push(e.tile_nnz, active_i32)
+                red, _hp, res_w, gat_w = _sweep(fx, d, state_d, active_i32,
+                                                tile_act, False)
+        w = (e.tile_nnz.to(torch.int64) * tile_act).sum((-2, -1))
+        new_d = {}
+        for p in fx.plans:
+            new_d.update(iterate.plan_merge(p, state_d, red,
+                                            fx.comps_by_idx))
+    else:
+        w = fx.num_edges
+        with _step_range(d):
+            red, hp, res_w, gat_w = _sweep(fx, d, state_d, fx.ones_act,
+                                           fx.tiles_static, True)
+        red = iterate._apply_epilogue(comps, red)
+        new_d = iterate._recompute_merge(fx.plans, fx.comps_by_idx, state_d,
+                                         red, hp)
+    new = tuple(new_d[cr.idx] for cr in comps)
+    ch = iterate._changed(comps, new, st, fx.tol)
+    dv, rs = take(div), take(resid)
+    if fx.sentinel:
+        dv = dv | iterate._divergence(comps, new)
+        rs = iterate._residual(comps, new, st)
+        ch = ch & ~dv[:, None]
+    return (tuple(put(s, n) for s, n in zip(state, new)), put(active, ch),
+            add(work, w), add(res_work, res_w), add(gather_work, gat_w),
+            put(div, dv), put(resid, rs))
+
+
+def _finish_batch(fx: _Fixpoint, carry) -> iterate.IterationResult:
+    (state, active, k, work, pushes, res_work, gather_work, div,
+     resid) = carry
+    n = fx.g.n
+    act_n, work, res_work, gather_work, div = torch.stack(
+        [active[:, :n].sum(1), work, res_work, gather_work,
+         div.to(torch.int64)]).tolist()
+    out = iterate.IterationResult(
+        state=tuple(s[:, :n] for s in state), iterations=list(k),
+        edge_work=work,
+        converged=[not d and a == 0 for d, a in zip(div, act_n)],
+        diverged=[bool(d) for d in div], active_count=act_n,
+        residual=resid.tolist())
+    out.push_iters = list(pushes)
+    out.pull_iters = [a - p for a, p in zip(k, pushes)]
+    out.resolve_work = res_work
+    out.gather_work = gather_work
     return out

@@ -875,3 +875,189 @@ def test_warm_start_on_card(cuda_device):
                            init_state=[s.cpu().numpy() for s in state])
     assert direct.stats.iterations == 1
     assert torch.equal(_bits(direct.value), _bits(cold.value))
+
+
+# ---------------------------------------------------------------------------
+# Batched queries on the card: the sweep kernels' slot axis
+# ---------------------------------------------------------------------------
+
+def _batch_inputs(dev, name, slots, density=0.2):
+    """The RM-XS graph on the card, one round's sweep shape and ``slots``
+    query slots' frontiers and states (a quarter ⊥), made with numpy."""
+    g = TS.rmat_graph(400, 3200, seed=11, device=dev)
+    rnd = _round(name, g.n)
+    n_pad = TS.to_blocked_ell(g).n_pad
+    rng = np.random.default_rng(30 + slots)
+    act = (rng.random((slots, n_pad)) < density).astype(np.int32)
+    act[:, g.n:] = 0
+    st = []
+    for dt, ident in zip(rnd.dtypes, rnd.idents):
+        v = rng.uniform(0.5, 9.0, (slots, n_pad)).astype(np.float32) \
+            if dt == torch.float32 else \
+            rng.integers(0, 50, (slots, n_pad)).astype(np.int32)
+        v[rng.random((slots, n_pad)) < 0.25] = ident
+        st.append(torch.from_numpy(v).to(dev))
+    od = torch.ones(n_pad, device=dev)
+    od[:g.n] = g.out_deg.clamp(min=1).float()
+    wd = torch.ones(n_pad, device=dev)
+    wd[:g.n] = TS.w_out_deg(g)
+    return g, rnd, torch.from_numpy(act).to(dev), od, wd, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["tile-major", "slot-major"])
+@pytest.mark.parametrize("slots", [1, 3, 8])
+@pytest.mark.parametrize("name", ["BFS", "WSP", "WPR"])
+def test_batched_kernels_match_plain_on_card(cuda_device, name, slots, order,
+                                             monkeypatch):
+    """One launch of each kernel for ``slots`` query slots, each slot
+    bitwise its plain version (the solo plain version per slot, stacked):
+    pull in both modes into poisoned buffers, push on the tiles it runs,
+    resolve with has-pred in full from a poisoned push buffer; the batched
+    walk in both item orders (forced through ``_SLOT_ORDER``)."""
+    monkeypatch.setattr(TER, "_SLOT_ORDER", order.split("-")[0])
+    dev = cuda_device
+    g, rnd, act, od, wd, st = _batch_inputs(dev, name, slots)
+    ein, eout = TS.to_blocked_ell(g), TS.to_blocked_ell(g, direction="out")
+    res = TS.to_push_resolution(g)
+    nv = float(g.n)
+    t_in = TER.tile_activity(ein.nbrs, ein.mask, ein.tile_nnz, act)
+    t_out = TER.tile_activity_push(eout.tile_nnz, act)
+    t_res = TER.resolution_tile_activity(res.contrib, t_out, res.tile_nnz)
+    pull_rest = (ein.nbrs, ein.weight, ein.capacity, ein.mask, act, od, wd,
+                 st, nv, True)
+    push_args = (rnd, t_out, eout.nbrs, eout.weight, eout.capacity,
+                 eout.mask, act, od, wd, st, nv)
+    res_kw = dict(push_tile_act=t_out, width_out=eout.width, states=st,
+                  need_hp=True)
+    want = TER._pull_plain(rnd, t_in, *pull_rest)
+    TER.reset_launches()
+    k_front, k_act = TER.pull_sweep_frontier(
+        rnd, ein.tiles_static, *pull_rest,
+        out=_poisoned_like([*want, t_in]))
+    k_given = TER.pull_sweep(rnd, t_in, *pull_rest,
+                             out=_poisoned_like(want))
+    poisoned = [torch.full((slots,) + tuple(eout.nbrs.shape), _POISON,
+                           dtype=torch.int32, device=dev).view(dt)
+                for dt in rnd.dtypes]
+    k_push = TER.push_sweep(*push_args, out=poisoned)
+    k_res = TER.resolve_sweep(rnd, t_res, res.valid, res.in2out, k_push,
+                              **res_kw)
+    torch.cuda.synchronize()
+    assert TER.LAUNCHES == {"pull": 2, "push": 1, "resolve": 1, "level": 0}
+    assert torch.equal(k_act, t_in)
+    for a, b, c in zip(k_front, k_given, want):
+        assert a.shape == (slots,) + tuple(c.shape[1:])
+        assert torch.equal(_bits(a), _bits(c))
+        assert torch.equal(_bits(b), _bits(c))
+    p_push = TER._push_plain(*push_args)
+    p_res = TER._resolve_plain(rnd, t_res, res.valid, res.in2out, p_push,
+                               **res_kw)
+    for s in range(slots):
+        ran = _slots_of_tiles(t_out[s])
+        for a, b in zip(k_push, p_push):
+            assert torch.equal(_bits(a[s])[ran], _bits(b[s])[ran])
+            assert bool((_bits(a[s])[~ran] == _POISON).all())
+    for a, b in zip(k_res, p_res):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.gpu
+def test_batched_kernels_share_inputs_on_card(cuda_device):
+    """A shared frontier and tile activity (slot stride 0), as the push−
+    and pull− batches pass them, give each slot its solo launch's bits."""
+    dev = cuda_device
+    g, rnd, act, od, wd, st = _batch_inputs(dev, "WPR", 3, density=1.0)
+    ein, eout = TS.to_blocked_ell(g), TS.to_blocked_ell(g, direction="out")
+    res = TS.to_push_resolution(g)
+    ones = torch.ones(ein.n_pad, dtype=torch.int32, device=dev)
+    nv = float(g.n)
+    r_static = TER.resolution_tile_activity(res.contrib, eout.tiles_static,
+                                            res.tile_nnz)
+    pulled = TER.pull_sweep(rnd, ein.tiles_static, ein.nbrs, ein.weight,
+                            ein.capacity, ein.mask, ones, od, wd, st, nv,
+                            True)
+    cands = TER.push_sweep(rnd, eout.tiles_static, eout.nbrs, eout.weight,
+                           eout.capacity, eout.mask, ones, od, wd, st, nv)
+    resolved = TER.resolve_sweep(rnd, r_static, res.valid, res.in2out, cands,
+                                 eout.tiles_static, eout.width, st, True)
+    for s in range(3):
+        st_s = [x[s] for x in st]
+        solo = TER.pull_sweep(rnd, ein.tiles_static, ein.nbrs, ein.weight,
+                              ein.capacity, ein.mask, ones, od, wd, st_s, nv,
+                              True)
+        c_s = TER.push_sweep(rnd, eout.tiles_static, eout.nbrs, eout.weight,
+                             eout.capacity, eout.mask, ones, od, wd, st_s, nv)
+        r_s = TER.resolve_sweep(rnd, r_static, res.valid, res.in2out, c_s,
+                                eout.tiles_static, eout.width, st_s, True)
+        for a, b in zip(pulled + resolved, solo + r_s):
+            assert torch.equal(_bits(a[s]), _bits(b))
+
+
+_BATCH_QUERIES = ["BFS", "SSSP", "WSP", "WP", "NSP"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", [None, "pull", "push"])
+@pytest.mark.parametrize("name", _BATCH_QUERIES)
+def test_batched_queries_match_solo_on_card(cuda_device, name, model):
+    """A batch of 8 sources on a mid-size graph: every query bitwise its
+    solo cuda query with equal counters; each sweep kernel launches at most
+    once per batch iteration and fewer times than the solo queries."""
+    g = TS.rmat_graph(4096, 65536, seed=7, device=cuda_device)
+    prog = TF.fuse(TU.ALL_SPECS[name]())
+    rng = np.random.default_rng(8)
+    srcs = [int(s) for s in rng.choice(
+        np.flatnonzero(g.out_deg.cpu().numpy() > 0), 8, replace=False)]
+    TER.reset_launches()
+    solo = [TE.run_program(g, prog, engine="cuda", model=model, source=s)
+            for s in srcs]
+    torch.cuda.synchronize()
+    solo_l = dict(TER.LAUNCHES)
+    TER.reset_launches()
+    batch = TE.run_program_batch(g, prog, srcs, model=model)
+    torch.cuda.synchronize()
+    batch_l = dict(TER.LAUNCHES)
+    iters = max(b.stats.iterations for b in batch)
+    for b, s in zip(batch, solo):
+        assert b.stats.engine_used == "cuda" and b.stats.fallbacks == ()
+        assert _counters(b.stats) == _counters(s.stats)
+        assert torch.equal(_bits(b.value), _bits(s.value))
+    for k in ("pull", "push", "resolve"):
+        assert batch_l[k] <= iters, k
+        if solo_l[k]:
+            assert 0 < batch_l[k] < solo_l[k], k
+
+
+@pytest.mark.gpu
+def test_continuous_batching_on_card(cuda_device):
+    """SSSP in chunks of 2 iterations through return_state / init_state on
+    the card; a retired slot takes a fresh ``batch_init_state`` row and its
+    answer equals its solo query's."""
+    g = TS.rmat_graph(4096, 65536, seed=7, device=cuda_device)
+    prog = TF.fuse(TU.ALL_SPECS["SSSP"]())
+    srcs, queue, answers = [1, 2, 3], [4, 5, 6, 7], {}
+    outs, state = TE.run_program_batch(g, prog, srcs, max_iter=2,
+                                       on_nonconverge="ignore",
+                                       return_state=True)
+    assert all(s.device.type == "cuda" for s in state)
+    for _ in range(200):
+        rows = list(state)
+        for b, o in enumerate(outs):
+            if o.stats.converged and srcs[b] not in answers:
+                answers[srcs[b]] = o.value.clone()
+                if queue:
+                    srcs[b] = queue.pop(0)
+                    fresh = TE.batch_init_state(g, prog, [srcs[b]])
+                    for r, f in zip(rows, fresh):
+                        r[b] = f[0]
+        if len(answers) == 7:
+            break
+        outs, state = TE.run_program_batch(g, prog, srcs, max_iter=2,
+                                           on_nonconverge="ignore",
+                                           init_state=tuple(rows),
+                                           return_state=True)
+    assert sorted(answers) == list(range(1, 8))
+    for s, got in answers.items():
+        want = TE.run_program(g, prog, engine="cuda", source=s).value
+        assert torch.equal(_bits(got), _bits(want)), s
