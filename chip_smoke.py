@@ -144,6 +144,25 @@ libraries at once, into ``build/repro_torch/``), and then
    Each line gives iterations per slot, launches per kernel, the batch's
    first and warm walls beside the solo queries' summed walls, queries per
    second, the peak device memory and the card's name and power limit.
+8. mutates the graphs through ``graph.mutate.mutate_edges`` (the layouts
+   patched on the card) and runs delta-seeded queries (``init_state`` from
+   the query's converged answer before the mutation, ``delta=`` the
+   mutation) against the cold ``cuda`` query on the mutated graph, with
+   the incremental bench's perturbation (seed 7, 0.5 % of |E| random
+   inserts, weights 0.1 + U[0, 1)): on the SCALE-16 graph BFS, SSSP and WP
+   bitwise with strictly less edge work, PageRank (``tol`` 1e-4 / n)
+   within a hundredth of the mean rank in no more iterations, a second
+   mutation of the mutated graph (BFS), a batch of 1,000 deleted edges
+   (BFS must plan "full" and equal the cold query on a canonical rebuild),
+   and one row given one insert more than it has free slots (one counted
+   rebuild, two patched layouts); CC on the undirected closure with each
+   insert in both directions; BFS on the uniform graph.  Each cold answer
+   is also held against the pull engine, bitwise (PageRank allclose, rtol
+   1e-5).  Each mutation runs once under torch.profiler for its device
+   time, that graph dropped, then once unprofiled for its wall.  Each line
+   gives the mutation's wall, device and host ms, the patched and rebuilt
+   layouts, the delta and cold queries' six counters, launches and first
+   and warm walls, the peak device memory and the card.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -202,6 +221,9 @@ FLASH_TOL = {"bfloat16": (2.0 ** -7, 1e-4), "float32": (1e-5, 1e-5)}
 # weighted SSSP iterations / edge work auto.
 RMXS_BFS = (6, 3, 7854, 9715, 6025)
 RMXS_WSSSP = (8, 13703)
+# The incremental bench's perturbation (benchmarks/fusion_bench.py): seeded
+# random inserts, a fraction of |E|, weights 0.1 + U[0, 1).
+INCR_SEED, INCR_FRAC = 7, 0.005
 
 
 def log(*parts):
@@ -1842,6 +1864,223 @@ def main(argv) -> int:
                 lambda name=name, model=model: TE.run_program_batch(
                     g, progs[name], srcs, model=model))
 
+    # ------------------------------------------------------------------
+    # Phase 8: incremental fixpoints over mutated graphs, through
+    # graph.mutate.mutate_edges and the entry points' delta=, while the
+    # graphs they need live.  The reference bench's perturbation: seed 7,
+    # 0.5 % of |E| random inserts, weights 0.1 + U[0, 1).  Each mutation
+    # runs once under torch.profiler (its device time) and once more
+    # unprofiled (its wall); the
+    # sweep kernels' launch counts are set to 0 just before each query and
+    # read just after (none counts for the main path).  Every old graph is
+    # dropped before the next mutation.
+    # ------------------------------------------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.graph import mutate as TM
+    phase8_rows = []
+
+    def perturbation(g, seed=INCR_SEED, frac=INCR_FRAC, both=False):
+        """``frac`` of |E| seeded random inserts, weights 0.1 + U[0, 1);
+        with ``both`` each one in both directions (an undirected graph)."""
+        rng = np.random.default_rng(seed)
+        k = max(2, int(g.num_edges * frac))
+        s, d = rng.integers(0, g.n, size=k), rng.integers(0, g.n, size=k)
+        w = (0.1 + rng.random(k)).astype(np.float32)
+        if both:
+            return np.concatenate([s, d]), np.concatenate([d, s]), \
+                np.concatenate([w, w])
+        return s, d, w
+
+    def mutation(g, **kw):
+        """``mutate_edges(g, **kw)`` twice: once under the profiler, for the
+        device's busy time (kernels and copies), its graph dropped at
+        once; then unprofiled, for the wall.  (graph, delta, its row part):
+        the wall, the device time and the rest, the host's, and the
+        profiled call's wall beside them."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            gp, _md = TM.mutate_edges(g, **kw)
+            torch.cuda.synchronize()
+            profiled_wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        drop(gp)
+        del gp
+        reset_peak()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g2, md = TM.mutate_edges(g, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if g2.device != g.device:
+            raise RuntimeError("the mutated graph left the card")
+        return g2, md, {
+            "n": g2.n, "edges": g2.num_edges, "inserted": md.inserted,
+            "deleted": md.deleted, "touched": int(md.touched.size),
+            "patched_layouts": md.patched_layouts,
+            "rebuilt_layouts": md.rebuilt_layouts, "mutate_ms": wall,
+            "mutate_device_ms": busy, "mutate_host_ms": wall - busy,
+            "mutate_profiled_ms": profiled_wall}
+
+    def drop(*graphs):
+        for gg in graphs:
+            TE.clear_graph_caches(gg)
+        torch.cuda.empty_cache()
+
+    def program(name):
+        """One program's cuda query, with its pull-engine twin."""
+        def query(g, **kw):
+            return TE.run_program(g, progs[name], engine="cuda", **kw)
+        query.pull = lambda g: TE.run_program(g, progs[name], engine="pull")
+        return query
+
+    def delta_case(label, g2, md, mrow, query, state, exact=True,
+                   expect="delta", canonical=None):
+        """The delta query (``init_state=state, delta=md``) on the mutated
+        graph against the cold cuda query there: bitwise (``exact``) or
+        within atol (PageRank), with the warm one's edge work strictly
+        under the cold one's on an insert-only idempotent batch.  The cold
+        answer is held against ``canonical()``, the cold query on a
+        canonical rebuild, or else against the pull engine: bitwise
+        (``exact``) or allclose rtol 1e-5 (PageRank, as in phase 5)."""
+        warm, wall, launched = counted(
+            lambda: query(g2, init_state=state, delta=md))
+        cold, cold_wall, cold_l = counted(lambda: query(g2))
+        warm_again = counted(lambda: query(g2, init_state=state,
+                                           delta=md))[1]
+        cold_again = counted(lambda: query(g2))[1]
+        peak = torch.cuda.max_memory_allocated()
+        for r in (warm, cold):
+            on_cuda(r, f"phase 8 {label}")
+        ws, cs = warm.stats, cold.stats
+        if exact:
+            same = torch.equal(bits(warm.value), bits(cold.value))
+            err = 0.0 if same else float("inf")
+        else:
+            err = float((warm.value.double() - cold.value.double()).abs()
+                        .max())
+            # PageRank's tol is 1e-4 / n, and both answers lie within a
+            # few tol of the fixpoint: held to a hundredth of the mean rank
+            same = bool(torch.isfinite(warm.value).all()) and \
+                err <= 1e-2 / g2.n and ws.iterations <= cs.iterations
+        ref = (canonical() if canonical is not None else query.pull(g2)) \
+            .value
+        if exact:
+            ref_ok = torch.equal(bits(cold.value), bits(ref))
+        else:
+            ref_ok = torch.allclose(cold.value, ref, rtol=1e-5, atol=1e-8)
+        fewer = (not exact or expect != "delta" or md.has_deletes
+                 or ws.edge_work < cs.edge_work)
+        ok = (same and ref_ok and fewer
+              and ws.plan.incremental == expect)
+        row = {"query": label, **mrow, "plan": ws.plan.incremental,
+               "iterations": ws.iterations, "cold_iterations": cs.iterations,
+               "push_iters": ws.push_iters, "cold_push_iters": cs.push_iters,
+               "pull_iters": ws.pull_iters, "cold_pull_iters": cs.pull_iters,
+               "edge_work": ws.edge_work, "cold_edge_work": cs.edge_work,
+               "resolve_work": ws.resolve_work,
+               "cold_resolve_work": cs.resolve_work,
+               "gather_work": ws.gather_work,
+               "cold_gather_work": cs.gather_work,
+               "launches": launched, "cold_launches": cold_l,
+               "wall_ms": wall, "warm_wall_ms": warm_again,
+               "cold_wall_ms": cold_wall, "cold_warm_wall_ms": cold_again,
+               "max_abs_err": err, "peak_bytes": peak, "card": card,
+               "reference": ("canonical rebuild" if canonical is not None
+                             else "pull engine"),
+               "match": ("bitwise" if exact else "allclose") if ok
+               else "MISMATCH"}
+        log("phase 8 " + json.dumps(row))
+        phase8_rows.append(row)
+        if not ok:
+            raise RuntimeError(
+                f"phase 8 {label}: plan {ws.plan.incremental!r} (expected "
+                f"{expect!r}), answer {'equal' if same else 'differs'}, "
+                f"cold against its reference {ref_ok}, edge work "
+                f"{ws.edge_work} against cold {cs.edge_work}")
+        return cold
+
+    def phase8_rmat16(g):
+        """BFS, SSSP and WP over one insert batch, PageRank's rescaled warm
+        delta, a chained second mutation, a delete batch (planned "full",
+        held against a canonical rebuild) and a forced row overflow (a
+        counted rebuild of the in-layout)."""
+        n = g.n
+        states = {}
+        for name in ("BFS", "SSSP", "WP"):
+            r, states[name] = program(name)(g, return_state=True)
+            on_cuda(r, f"phase 8 {name} before the mutation")
+        pr_dk = pagerank_kernels(n, tol=1e-4 / n)
+
+        def pagerank(gg, **kw):
+            return TE.run_direct(gg, pr_dk, engine="cuda", **kw)
+        pagerank.pull = lambda gg: TE.run_direct(gg, pr_dk, engine="pull")
+        pr_prev = on_cuda(pagerank(g)).value
+        g2, md, mrow = mutation(g, insert=perturbation(g))
+        for name in ("BFS", "SSSP", "WP"):
+            delta_case(f"{name} rmat16", g2, md, mrow, program(name),
+                       states[name])
+        delta_case("PageRank rmat16", g2, md, mrow, pagerank, [pr_prev],
+                   exact=False)
+        # a second mutation on the mutated graph patches from the recorded
+        # slot maps
+        _r, st2 = program("BFS")(g2, return_state=True)
+        g3, md3, mrow3 = mutation(g2, insert=perturbation(g2, seed=8))
+        drop(g2)
+        del g2
+        delta_case("BFS rmat16 chained", g3, md3, mrow3, program("BFS"), st2)
+        drop(g3)
+        del g3
+        # a delete batch: idempotent rounds plan the cold recompute
+        src, dst, _w, _c = g.host_edges()
+        gone = np.random.default_rng(INCR_SEED).choice(src.size, 1000,
+                                                       replace=False)
+        gd, mdd, mrowd = mutation(g, delete=(src[gone], dst[gone]))
+
+        def canonical():
+            gc = TS.from_arrays(n, *gd.host_edges(), device=dev)
+            r = on_cuda(program("BFS")(gc), "phase 8 canonical rebuild")
+            drop(gc)
+            return r
+        delta_case("BFS rmat16 deletes", gd, mdd, mrowd, program("BFS"),
+                   states["BFS"], expect="full", canonical=canonical)
+        drop(gd)
+        del gd
+        # a forced row overflow: the in-row of the vertex of most in-edges
+        # takes one insert more than it has free slots
+        ein = TS.blocked_ell_cached(g, direction="in")
+        eout = TS.blocked_ell_cached(g, direction="out")
+        in_deg = g.in_deg.cpu().numpy()
+        out_deg = g.out_deg.cpu().numpy()
+        hub = int(in_deg.argmax())
+        free = ein.width - int(in_deg[hub])
+        cand = np.flatnonzero((out_deg < eout.width)
+                              & (np.arange(n) != hub))
+        srcs = np.random.default_rng(INCR_SEED).choice(cand, free + 1,
+                                                       replace=False)
+        go, mdo, mrowo = mutation(g, insert=(
+            srcs, np.full(free + 1, hub), np.full(free + 1, 0.5,
+                                                  np.float32)))
+        if (mdo.rebuilt_layouts, mdo.patched_layouts) != (1, 2):
+            raise RuntimeError(f"phase 8 overflow: {mdo.rebuilt_layouts} "
+                               f"rebuilt, {mdo.patched_layouts} patched "
+                               "layouts, expected 1 and 2")
+        delta_case("BFS rmat16 overflow", go, mdo, mrowo, program("BFS"),
+                   states["BFS"])
+        drop(go)
+        del go
+
+    def phase8_single(label, g, name, both=False):
+        """One idempotent query over the seeded insert batch."""
+        r, state = program(name)(g, return_state=True)
+        on_cuda(r, f"phase 8 {label} before the mutation")
+        g2, md, mrow = mutation(g, insert=perturbation(g, both=both))
+        delta_case(label, g2, md, mrow, program(name), state)
+        drop(g2)
+
     setup("rmat16", g16)
     ER.reset_launches()
     for name in ("BFS", "SSSP", "WSP"):
@@ -1882,6 +2121,9 @@ def main(argv) -> int:
     t7 = time.perf_counter()
     phase7_rmat16(g16)
     phase7_s = time.perf_counter() - t7
+    t8 = time.perf_counter()
+    phase8_rmat16(g16)
+    phase8_s = time.perf_counter() - t8
     gu16 = TS.undirected(g16)
     TE.clear_graph_caches(g16)
     torch.cuda.empty_cache()
@@ -1894,6 +2136,9 @@ def main(argv) -> int:
     t5 = time.perf_counter()
     phase5_undirected(gu16)
     phase5_s += time.perf_counter() - t5
+    t8 = time.perf_counter()
+    phase8_single("CC undirected(rmat16)", gu16, "CC", both=True)
+    phase8_s += time.perf_counter() - t8
     del gu16, g16
     TE.clear_program_caches()
     torch.cuda.empty_cache()
@@ -1952,6 +2197,12 @@ def main(argv) -> int:
     log(f"phase 7: {phase7_s:.1f} s")
     record["phase7"] = phase7_rows
     record["phase7_s"] = phase7_s
+    t8 = time.perf_counter()
+    phase8_single("BFS uniform21", gu, "BFS")
+    phase8_s += time.perf_counter() - t8
+    log(f"phase 8: {phase8_s:.1f} s")
+    record["phase8"] = phase8_rows
+    record["phase8_s"] = phase8_s
     level_cases("uniform21", gu, ("int n+1",))
     softmax_case("uniform21 in-layout", gu)
     del gu
@@ -2136,6 +2387,9 @@ def main(argv) -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "max_abs_err": c["max_abs_err"],
             "launches": sum(r["launches"][kname] for r in phase7_rows)}
+        # and its launches in phase 8's delta queries
+        row["incremental_launches"] = sum(r["launches"][kname]
+                                          for r in phase8_rows)
     kernels[0]["batched"].update(
         given_ms=batch_ref["pull_given"]["ms"],
         given_solo_ms=batch_ref["pull_given"]["solo_ms"],

@@ -58,7 +58,6 @@ _BOT_CUTOFF = 1e8
 # Keyword arguments of the reference entry points that belong to later
 # slices of the port; passing one with a non-default value raises.
 _LATER = {
-    "delta": "incremental fixpoints (ROADMAP Queue 1, item 9)",
     "mesh": "the sharded engines (ROADMAP Queue 1, item 11)",
     "axes": "the sharded engines (ROADMAP Queue 1, item 11)",
     "shard_strategy": "the sharded engines (ROADMAP Queue 1, item 11)",
@@ -83,16 +82,18 @@ def _reject_later(kwargs: dict) -> None:
 
 def clear_program_caches():
     """Drop every layer of the program cache: synthesized round kernels,
-    layouts, plans and the per-round sweep shapes."""
+    layouts, mutation slot maps, plans and the per-round sweep shapes; and
+    zero ``mutate.MUTATION_STATS``."""
     from repro_torch.core import synthesis
-    from repro_torch.graph import structure
+    from repro_torch.graph import mutate, structure
     from repro_torch.kernels import ops as kops
     synthesis._ROUND_CACHE.clear()
     for cache in (structure._ELL_CACHE, structure._RES_CACHE,
                   structure._WDEG_CACHE, structure._VALID_CACHE,
-                  structure._STATS_CACHE):
+                  structure._STATS_CACHE, structure._SLOT_CACHE):
         cache.clear()
     _plan.clear_plan_caches()
+    mutate.reset_mutation_stats()
     kops.clear_executor_cache()
 
 
@@ -111,6 +112,7 @@ def program_cache_stats() -> dict:
             "ell_layouts": len(structure._ELL_CACHE),
             "push_resolutions": len(structure._RES_CACHE),
             "graph_stats": len(structure._STATS_CACHE),
+            "slot_maps": len(structure._SLOT_CACHE),
             "plans": _plan.plan_cache_size(),
             "feedback": _plan.feedback_cache_size(),
             "cuda_rounds": kops.executor_cache_size()}
@@ -255,7 +257,9 @@ def _run(engine: str, plan: ExecutionPlan, g, comps, plans, max_iter, tol,
     only while walking the fallback chain; the engine-dependent plan fields
     then re-resolve (``degrade_plan``).  ``warm`` holds the warm-start and
     checkpoint arguments, which only the cuda engine reads: as in the
-    reference, a query degraded to another engine runs cold."""
+    reference, a query degraded to another engine runs cold.  A delta seed
+    over a non-idempotent round warm-starts from the rescaled state
+    (``_rescale_warm_state``)."""
     plan = _plan.degrade_plan(plan, engine)
     if engine in ("pull", "push"):
         idempotent = all(iterate.plan_idempotent(p) for p in plans)
@@ -273,9 +277,50 @@ def _run(engine: str, plan: ExecutionPlan, g, comps, plans, max_iter, tol,
                                      tol=tol, sources=sources)
     if engine == "cuda":
         from repro_torch.kernels import ops as kops
+        if (warm["delta"] is not None and warm["init_state"] is not None
+                and not all(iterate.plan_idempotent(p) for p in plans)):
+            warm = dict(warm, init_state=_rescale_warm_state(
+                warm["init_state"], comps, g))
         return kops.iterate_cuda(g, comps, plans, max_iter=max_iter, tol=tol,
                                  sources=sources, plan=plan, **warm)
     raise ValueError(f"unknown engine {engine}")
+
+
+def _rescale_warm_state(init_state, comps, g) -> tuple:
+    """The guarded warm start of a NON-idempotent round from a previous
+    solution: a (−) recompute round re-derives every vertex from its
+    neighbourhood each sweep and contracts to its unique attractive
+    fixpoint from any finite state, so the warm state needs sanitizing, not
+    re-deriving.  For mass-conserving "sum" components (PageRank-style) the
+    non-finite entries (values an edit invalidated) take the finite mean
+    and the whole is rescaled to the retired answer's total mass; an
+    all-finite state passes bitwise untouched.  Host numpy, exactly the
+    reference's arithmetic; the result lies on the graph's device."""
+    out = []
+    for a, cr in zip(init_state, comps):
+        arr = (a.detach().cpu().numpy().copy() if isinstance(a, torch.Tensor)
+               else np.array(a))
+        if cr.op == "sum":
+            finite = np.isfinite(arr)
+            if not finite.all():
+                mass = float(arr[finite].sum()) if finite.any() else 0.0
+                fill = mass / max(1, int(finite.sum()))
+                arr = np.where(finite, arr, fill).astype(arr.dtype)
+                tot = float(arr.sum())
+                if np.isfinite(tot) and tot != 0.0 and mass != 0.0:
+                    arr = (arr * (mass / tot)).astype(arr.dtype)
+        out.append(torch.from_numpy(np.ascontiguousarray(arr))
+                   .to(g.device))
+    return tuple(out)
+
+
+def _mutation_hints(delta):
+    """``delta=`` as ``(mutation, ids)``: a ``MutationDelta`` (anything with
+    ``touched``) feeds the planner and seeds its touched set; raw vertex
+    ids are taken as given, with no mutation."""
+    if delta is not None and hasattr(delta, "touched"):
+        return delta, np.asarray(delta.touched)
+    return None, delta
 
 
 def _check_batch_outcomes(res, src_list, max_iter_eff, on_nonconverge):
@@ -379,7 +424,7 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
                 divergence_sentinel: bool = True,
                 checkpoint_every: Optional[int] = None,
                 ckpt_dir=None, resume: bool = False,
-                init_state=None, return_state: bool = False,
+                init_state=None, delta=None, return_state: bool = False,
                 adaptive: bool = False,
                 plan: Optional[ExecutionPlan] = None,
                 explain: bool = False,
@@ -408,34 +453,51 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
     warm-starts the round.  ``return_state=True`` returns ``(result,
     state)``, ``state`` the round's final per-component [n] tensors on the
     graph's device, to feed back as the next query's ``init_state``.  The
-    warm hooks need a single-round program; with ``init_state`` or
-    ``return_state`` the default engine is cuda.  A query that falls back
-    to adaptive runs cold."""
+    warm hooks need a single-round program; with ``init_state``, ``delta``
+    or ``return_state`` the default engine is cuda.  A query that falls
+    back to adaptive runs cold.
+
+    Incremental queries over a mutated graph (``graph.mutate``):
+    ``init_state=prev`` with ``delta=`` seeds the frontier with only the
+    vertices whose values may have changed.  A ``MutationDelta`` also feeds
+    the planner's ``incremental`` knob: "delta" for a small edit, "full"
+    (the cold recompute, warm hints dropped) for a large one or for an
+    idempotent round after deletions, whose stale values cannot retract.
+    Raw vertex ids are taken as given.  Idempotent rounds converge bitwise
+    to the cold query on the mutated graph; non-idempotent (PageRank-style)
+    rounds warm-start from the rescaled state and need ``tol > 0``."""
     _reject_later(later)
     _prepare(g, device)
+    mutation, delta_ids = _mutation_hints(delta)
     if plan is None or explain:
         planned = plan_execution(
             g, prog, engine=engine, model=model, switch_k=switch_k,
             push_resolution=push_resolution, validate=validate,
             on_nonconverge=on_nonconverge, fallback=fallback,
             divergence_sentinel=divergence_sentinel, adaptive=adaptive,
+            mutation=mutation,
             default_engine="cuda" if (init_state is not None
+                                      or delta is not None
                                       or return_state) else "pull",
             explain=explain)
         if explain:
             return planned
         plan = planned
+    if mutation is not None and plan.incremental == "full":
+        # the planner judged the warm+delta path unsound or unprofitable:
+        # the planned cold recompute, visible in stats.plan
+        init_state = delta_ids = None
     if (checkpoint_every is not None or resume) and plan.engine != "cuda":
         raise ValueError("checkpointed fixpoints are a cuda-engine feature; "
                          f"got engine={plan.engine!r}")
-    if init_state is not None or return_state:
+    if init_state is not None or delta_ids is not None or return_state:
         if plan.engine != "cuda":
             raise ValueError(
-                "init_state/return_state warm-start hooks are a cuda-engine "
-                f"feature; got engine={plan.engine!r}")
-        _require_single_round(prog)
+                "init_state/delta/return_state warm-start hooks are a "
+                f"cuda-engine feature; got engine={plan.engine!r}")
+        _require_single_round(prog, "init_state/delta/return_state")
     warm = dict(checkpoint_every=checkpoint_every, ckpt_dir=ckpt_dir,
-                resume=resume, init_state=init_state)
+                resume=resume, init_state=init_state, delta=delta_ids)
     chk = _validate_inputs(g, source=source) if plan.validate else None
     max_iter_eff = max_iter if max_iter is not None else 2 * g.n + 4
     stats = ExecStats(engine_used=plan.engine, plan=plan)
@@ -689,7 +751,7 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
                divergence_sentinel: bool = True,
                checkpoint_every: Optional[int] = None,
                ckpt_dir=None, resume: bool = False,
-               init_state=None,
+               init_state=None, delta=None,
                adaptive: bool = False,
                plan: Optional[ExecutionPlan] = None,
                explain: bool = False,
@@ -699,8 +761,11 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
     idempotent kernels switch per iteration and the rest run the pull−
     recompute.  The cuda engine needs ``dk.p_expr`` (the kernel is
     generated from it).  ``fallback``, ``ft_config``, ``checkpoint_every``,
-    ``ckpt_dir``, ``resume`` and ``init_state`` act as in ``run_program``;
-    with ``init_state`` the default engine is cuda.
+    ``ckpt_dir``, ``resume``, ``init_state`` and ``delta`` act as in
+    ``run_program``; with ``init_state`` or ``delta`` the default engine is
+    cuda.  For the non-idempotent kernels this entry point mostly serves
+    (PageRank), ``delta`` is the rescaled warm start, converging to the
+    tolerance-fixed answer of a cold run.
 
     ``source`` overrides ``dk.source`` for one query; ``sources`` runs a
     [B] batch of queries and returns a list of per-query ``ExecResult``s:
@@ -713,6 +778,7 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
 
     _reject_later(later)
     _prepare(g, device)
+    mutation, delta_ids = _mutation_hints(delta)
     if plan is None or explain:
         planned = plan_execution(
             g, dk, engine=engine, model=model, switch_k=switch_k,
@@ -720,13 +786,20 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
             batch=None if sources is None else len(sources),
             validate=validate, on_nonconverge=on_nonconverge,
             fallback=fallback, divergence_sentinel=divergence_sentinel,
-            adaptive=adaptive,
-            default_engine="cuda" if init_state is not None else "pull",
+            adaptive=adaptive, mutation=mutation,
+            default_engine="cuda" if (init_state is not None
+                                      or delta is not None) else "pull",
             explain=explain)
         if explain:
             return planned
         plan = planned
-    chunked = checkpoint_every is not None or resume or init_state is not None
+    if mutation is not None and plan.incremental == "full":
+        init_state = delta_ids = None
+    if delta_ids is not None and sources is not None:
+        raise ValueError("delta warm starts are a solo-query path; "
+                         "batched sources cannot share one touched set")
+    chunked = (checkpoint_every is not None or resume
+               or init_state is not None or delta_ids is not None)
     if chunked and plan.engine != "cuda":
         raise ValueError("checkpointed/warm-started fixpoints are a "
                          f"cuda-engine feature; got engine={plan.engine!r}")
@@ -755,7 +828,7 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
                              max_iter_eff, device)
     src_over = None if source is None else {0: int(source)}
     warm = dict(checkpoint_every=checkpoint_every, ckpt_dir=ckpt_dir,
-                resume=resume, init_state=init_state)
+                resume=resume, init_state=init_state, delta=delta_ids)
     res, eng_used, events, retries = _dispatch_guarded(
         lambda eng: _run(eng, plan, g, [comp], plans, dk.max_iter, dk.tol,
                          src_over, warm),

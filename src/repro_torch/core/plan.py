@@ -16,8 +16,10 @@ reference's ``pallas``).  ``degrade_plan`` gives the plan one step of the
 guard fallback chain runs under.  ``batch_size`` / ``batch_lane``
 describe a batch of query sources: "vmapped" on ``cuda`` (one launch per
 sweep per iteration for the whole batch, the reference's name for it),
-"sequential" elsewhere (B solo queries, a recorded degradation).  The
-sharded engines and mutation-aware planning belong to later slices.
+"sequential" elsewhere (B solo queries, a recorded degradation).
+``incremental`` is the mutation-aware mode of a query over a mutated graph
+(``mutation=``): "delta" (warm start, touched-frontier seed) or "full" (the
+cold recompute).  The sharded engines belong to a later slice.
 
 A recorded-stats feedback cache closes the loop: each executed query
 records its push/pull split and resolve work per (graph, query kind);
@@ -47,6 +49,9 @@ PUSH_RESOLUTION = "sorted"  # default dst-keyed resolution of the push sweep:
                             # "sorted" = the resolve kernel over the
                             # dst-major layout; "scatter" = full-rectangle
                             # torch scatter (the reference path)
+
+INCREMENTAL_DELTA = 0.05   # mutated-edge fraction of |E| up to which a query
+                           # over a mutated graph plans the warm+delta path
 
 ADAPT_SPAN = 4.0
 ADAPT_PUSH_HI = 0.75
@@ -114,6 +119,8 @@ def assert_normalized(plan: "ExecutionPlan") -> None:
     if plan.push_resolution not in ("sorted", "scatter"):
         raise ValueError(
             f"unnormalized push_resolution {plan.push_resolution!r}")
+    if plan.incremental not in (None, "delta", "full"):
+        raise ValueError(f"unnormalized incremental {plan.incremental!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +141,7 @@ class ExecutionPlan:
     fallback: bool = False
     divergence_sentinel: bool = True
     adaptive: bool = False
+    incremental: Optional[str] = None
     kind: tuple = ()
 
     def knobs(self) -> dict:
@@ -303,6 +311,7 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
                    divergence_sentinel: bool = True,
                    adaptive: bool = False,
                    batch: Optional[int] = None,
+                   mutation=None,
                    default_engine: str = "pull",
                    explain: bool = False):
     """Resolve every execution knob of one query into an ``ExecutionPlan``.
@@ -310,8 +319,14 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
     An explicit caller kwarg always wins; ``engine=None`` takes the entry
     point's default; ``engine="auto"`` picks ``cuda``; unset knobs take the
     documented defaults.  ``batch`` (B query sources) resolves the batch
-    lane.  Plans are cached per (graph identity, kind, hints[, feedback
-    epoch]); ``explain=True`` returns a ``PlanExplanation``."""
+    lane.  ``mutation=`` (a ``graph.mutate.MutationDelta``, or anything
+    with ``inserted`` / ``deleted`` / ``touched`` / ``has_deletes``)
+    resolves ``incremental``: an edit of at most ``INCREMENTAL_DELTA`` of
+    |E| plans "delta" (warm start + touched-frontier seed), a larger one,
+    or an idempotent query after deletions (whose stale monotone values
+    cannot retract), "full".  Plans are cached per (graph identity, kind,
+    hints[, feedback epoch]); ``explain=True`` returns a
+    ``PlanExplanation``."""
     from repro_torch.graph import structure
 
     decisions: dict = {} if explain else None
@@ -319,9 +334,17 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
     idempotent = _prog_idempotent(prog)
     fb = feedback_for(g, kind) if adaptive else None
     fb_epoch = fb.epoch if fb is not None else 0
+    mut_key = None
+    if mutation is not None:
+        touched = getattr(mutation, "touched", None)
+        mut_key = (int(getattr(mutation, "inserted", 0)),
+                   int(getattr(mutation, "deleted", 0)),
+                   0 if touched is None else int(getattr(touched, "size",
+                                                         len(touched))),
+                   bool(getattr(mutation, "has_deletes", False)))
     hints_key = (engine, model, switch_k, dense_threshold, push_resolution,
                  validate, on_nonconverge, fallback, divergence_sentinel,
-                 adaptive, batch, default_engine)
+                 adaptive, batch, mut_key, default_engine)
     cache_key = (id(g), kind, hints_key, fb_epoch)
     if not explain:
         hit = _PLAN_CACHE.get(cache_key)
@@ -396,13 +419,33 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
                 else f"engine {eng!r} has no batched fixpoint — B={batch} "
                      "sequential runs (recorded degradation)")
 
+    inc = None
+    if mut_key is not None:
+        n_ins, n_del, _n_touched, has_del = mut_key
+        sz = n_ins + n_del
+        if idempotent and has_del:
+            inc = "full"
+            inc_reason = ("idempotent round after deletions: stale monotone "
+                          "values cannot retract — planned full recompute")
+        elif sz <= INCREMENTAL_DELTA * max(1, stats.num_edges):
+            inc = "delta"
+            inc_reason = (f"{sz} mutated edges ≤ {INCREMENTAL_DELTA:.0%} of "
+                          f"|E|={stats.num_edges} → warm+delta propagation")
+        else:
+            inc = "full"
+            inc_reason = (f"{sz} mutated edges > {INCREMENTAL_DELTA:.0%} of "
+                          f"|E|={stats.num_edges} → planned full recompute")
+        if decisions is not None:
+            decisions["incremental"] = inc_reason
+
     plan = ExecutionPlan(
         engine=eng, model=model, direction=direction,
         switch_k=k_norm, dense_threshold=dt,
         push_resolution=res, resolution_hint=push_resolution,
-        batch_size=batch, batch_lane=lane, validate=validate, on_nonconverge=on_nonconverge,
+        batch_size=batch, batch_lane=lane, validate=validate,
+        on_nonconverge=on_nonconverge,
         fallback=fallback, divergence_sentinel=divergence_sentinel,
-        adaptive=adaptive, kind=kind)
+        adaptive=adaptive, incremental=inc, kind=kind)
     if explain:
         return PlanExplanation(
             plan=plan, stats=stats,

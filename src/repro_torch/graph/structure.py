@@ -39,7 +39,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _to(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:        # e.g. a view of a JAX array's buffer
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,18 +166,19 @@ def from_edges(n: int, src, dst, weight=None, capacity=None,
             weight, capacity = weight[keep], capacity[keep]
     src = src.astype(np.int32, copy=False)
     dst = dst.astype(np.int32, copy=False)
+    edges = [_to(a, dev) for a in (src, dst, weight, capacity)]
 
     def order(key):
-        perm = np.argsort(key, kind="stable")
-        return EdgeOrder(src=_to(src[perm], dev), dst=_to(dst[perm], dev),
-                         weight=_to(weight[perm], dev),
-                         capacity=_to(capacity[perm], dev))
+        # a stable sort on the device: the permutation of the host's stable
+        # argsort, so the order is bitwise the reference's
+        perm = torch.argsort(key, stable=True)
+        return EdgeOrder(*(a[perm] for a in edges))
 
     in_deg = np.bincount(dst, minlength=n).astype(np.int32)
     out_deg = np.bincount(src, minlength=n).astype(np.int32)
     w_out = np.bincount(src, weights=weight.astype(np.float64),
                         minlength=n).astype(np.float32)
-    return Graph(n=n, by_dst=order(dst), by_src=order(src),
+    return Graph(n=n, by_dst=order(edges[1]), by_src=order(edges[0]),
                  in_deg=_to(in_deg, dev), out_deg=_to(out_deg, dev),
                  w_out_deg=_to(w_out, dev))
 
@@ -217,17 +221,29 @@ def _sorted_unique(keys: np.ndarray) -> np.ndarray:
     return k[keep]
 
 
-def _cached(cache: dict, key, g, build):
-    """Identity-keyed memo: a weakref guards against id() reuse and a
-    finalizer drops the entry when the graph is garbage-collected."""
+def _lookup(cache: dict, key, g):
+    """The entry of ``g`` under ``key``, or None: a weakref guards against
+    id() reuse."""
     hit = cache.get(key)
-    if hit is not None:
-        ref, val = hit
-        if ref() is g:
-            return val
-    val = build()
+    if hit is None:
+        return None
+    ref, val = hit
+    return val if ref() is g else None
+
+
+def _install(cache: dict, key, g, val) -> None:
+    """Store ``val`` for ``g``; a finalizer drops the entry when the graph
+    is garbage-collected."""
     cache[key] = (weakref.ref(g), val)
     weakref.finalize(g, cache.pop, key, None)
+
+
+def _cached(cache: dict, key, g, build):
+    """Identity-keyed memo over ``_lookup`` / ``_install``."""
+    val = _lookup(cache, key, g)
+    if val is None:
+        val = build()
+        _install(cache, key, g, val)
     return val
 
 
@@ -374,60 +390,70 @@ class BlockedELL:
         return self.nbrs
 
 
-def _padded_width(deg: np.ndarray, block_e: int) -> int:
+def _padded_width(deg: torch.Tensor, block_e: int) -> int:
     """Max degree padded up to the slot-tile size — THE width rule of every
     blocked layout."""
-    width = int(max(1, deg.max() if deg.size else 1))
+    width = max(1, int(deg.max()) if deg.numel() else 1)
     return ((width + block_e - 1) // block_e) * block_e
 
 
-def _fill_order_slots(row_of: np.ndarray, n: int) -> np.ndarray:
+def _fill_order_slots(row_of: torch.Tensor, n: int) -> torch.Tensor:
     """Per-edge slot index under the left-to-right row fill rule, edges in
-    ``host_edges()`` order — THE slot assignment of ``to_blocked_ell``."""
-    e = row_of.shape[0]
-    perm = np.argsort(row_of, kind="stable")
+    ``host_edges()`` order (int64, on the rows' device) — THE slot
+    assignment of ``to_blocked_ell``."""
+    dev = row_of.device
+    perm = torch.argsort(row_of, stable=True)
     # rank within the row = position in the stable order − the row's start
-    counts = np.bincount(row_of, minlength=n)
-    starts = np.cumsum(counts) - counts
-    out = np.empty(e, dtype=np.int64)
-    out[perm] = np.arange(e, dtype=np.int64) - starts[row_of[perm]]
+    counts = torch.bincount(row_of, minlength=n)
+    starts = torch.cumsum(counts, 0) - counts
+    out = torch.empty(row_of.shape[0], dtype=torch.int64, device=dev)
+    out[perm] = torch.arange(row_of.shape[0], device=dev) \
+        - starts[row_of[perm].long()]
     return out
+
+
+def _tile_nnz(rows: torch.Tensor, ks: torch.Tensor, n_pad: int, width: int,
+              block_v: int, block_e: int) -> torch.Tensor:
+    """Slots per (block_v × block_e) tile among (rows, ks): int32
+    ``[n_pad/block_v, width/block_e]``."""
+    n_j = width // block_e
+    return torch.bincount((rows // block_v) * n_j + ks // block_e,
+                          minlength=(n_pad // block_v) * n_j) \
+        .to(torch.int32).view(n_pad // block_v, n_j)
 
 
 def to_blocked_ell(g: Graph, block_v: int = 8, block_e: int = 128,
                    direction: str = "in") -> BlockedELL:
     """Build the blocked-ELL layout keyed by dst (``direction="in"``) or by
-    src (``direction="out"``) on host, then move it to the graph's
-    device."""
-    src, dst, w, c = g.host_edges()
-    n = g.n
+    src (``direction="out"``) on the graph's device."""
+    e = g.by_dst
     if direction == "in":
-        row_of, nbr_of = dst, src
+        row_of, nbr_of, deg = e.dst, e.src, g.in_deg
     elif direction == "out":
-        row_of, nbr_of = src, dst
+        row_of, nbr_of, deg = e.src, e.dst, g.out_deg
     else:
         raise ValueError(f"direction must be 'in' or 'out', got {direction!r}")
-    width = _padded_width(np.bincount(row_of, minlength=n), block_e)
+    n = g.n
+    width = _padded_width(deg, block_e)
     n_pad = ((n + block_v - 1) // block_v) * block_v
-    nbrs = np.zeros((n_pad, width), dtype=np.int32)
-    ws = np.zeros((n_pad, width), dtype=np.float32)
-    cs = np.zeros((n_pad, width), dtype=np.float32)
-    mask = np.zeros((n_pad, width), dtype=bool)
-    ks = _fill_order_slots(row_of, n)
-    nbrs[row_of, ks] = nbr_of
-    ws[row_of, ks] = w
-    cs[row_of, ks] = c
-    mask[row_of, ks] = True
-    tile_nnz = np.bincount(
-        (row_of // block_v).astype(np.int64) * (width // block_e)
-        + ks // block_e, minlength=(n_pad // block_v) * (width // block_e)
-    ).astype(np.int32).reshape(n_pad // block_v, width // block_e)
     dev = g.device
+    rows = row_of.long()
+    ks = _fill_order_slots(row_of, n)
+    at = (rows, ks)
+
+    def rect(dtype, vals):
+        out = torch.zeros((n_pad, width), dtype=dtype, device=dev)
+        out[at] = vals
+        return out
     return BlockedELL(n=n, n_pad=n_pad, width=width,
                       block_v=block_v, block_e=block_e,
-                      nbrs=_to(nbrs, dev), weight=_to(ws, dev),
-                      capacity=_to(cs, dev), mask=_to(mask, dev),
-                      tile_nnz=_to(tile_nnz, dev), direction=direction)
+                      nbrs=rect(torch.int32, nbr_of),
+                      weight=rect(torch.float32, e.weight),
+                      capacity=rect(torch.float32, e.capacity),
+                      mask=rect(torch.bool, True),
+                      tile_nnz=_tile_nnz(rows, ks, n_pad, width, block_v,
+                                         block_e),
+                      direction=direction)
 
 
 _ELL_CACHE: dict = {}
@@ -470,57 +496,67 @@ class PushResolution:
     contrib: torch.Tensor    # [n_tiles, c_max] int32, −1 pad
 
 
-def to_push_resolution(g: Graph, block_v: int = 8, block_e: int = 128,
-                       min_width: int = 0,
-                       min_out_width: int = 0) -> PushResolution:
-    """Build the dst-major resolution permutation for the push sweep by the
-    reference's exact slot rules (``_fill_order_slots``/``_padded_width``):
-    ``in2out[dst[i], k_in] = src[i]·width_out + k_out``."""
-    src, dst, _w, _c = g.host_edges()
-    n = g.n
-    w_in = max(_padded_width(np.bincount(dst, minlength=n), block_e),
-               int(min_width))
-    w_out = max(_padded_width(np.bincount(src, minlength=n), block_e),
-                int(min_out_width))
+def _resolution_from_slots(n, src, dst, k_in, k_out, w_in, w_out,
+                           block_v, block_e) -> PushResolution:
+    """The dst-major resolution over explicit per-edge slots and widths.
+    ``src`` / ``dst`` / ``k_in`` / ``k_out`` are tensors in ``host_edges``
+    (dst-sorted) order on the graph's device, where every field is built:
+    ``in2out[dst[i], k_in[i]] = src[i]·w_out + k_out[i]``, O(E) tile ids,
+    a sorted unique over the (resolution tile, out-tile) pairs and a cumsum
+    rank into ``contrib``.  The canonical layouts' slots are the fill order
+    (``to_push_resolution``); a patched pair's are wherever a free slot was
+    (``graph.mutate``)."""
+    dev = src.device
     n_pad = ((n + block_v - 1) // block_v) * block_v
     if n_pad * w_out >= 2 ** 31:
         raise ValueError(
             f"out rectangle {n_pad}×{w_out} overflows int32 flat indices; "
             "the dst-sorted resolution layout needs an int64 gather path "
             "for graphs this hub-heavy")
-    k_out = _fill_order_slots(src, n)
-    k_in = _fill_order_slots(dst, n)
-    in2out = np.zeros((n_pad, w_in), dtype=np.int32)
-    valid = np.zeros((n_pad, w_in), dtype=bool)
-    src_tile = np.zeros((n_pad, w_in), dtype=np.int32)
     n_j_in = w_in // block_e
     n_j_out = w_out // block_e
-    in2out[dst, k_in] = src.astype(np.int64) * w_out + k_out
-    valid[dst, k_in] = True
-    s_tile = (src // block_v).astype(np.int64) * n_j_out + k_out // block_e
-    src_tile[dst, k_in] = s_tile
     n_tiles = (n_pad // block_v) * n_j_in
     n_out_tiles = (n_pad // block_v) * n_j_out
-    r_tile = (dst // block_v).astype(np.int64) * n_j_in + k_in // block_e
-    tile_nnz = np.bincount(r_tile, minlength=n_tiles).astype(np.int32) \
-        .reshape(n_pad // block_v, n_j_in)
-    pair = _sorted_unique(r_tile * n_out_tiles + s_tile)
+    src, dst = src.long(), dst.long()
+    s_tile = (src // block_v) * n_j_out + k_out // block_e
+    r_tile = (dst // block_v) * n_j_in + k_in // block_e
+    tile_nnz = torch.bincount(r_tile, minlength=n_tiles).to(torch.int32) \
+        .view(n_pad // block_v, n_j_in)
+    pair = torch.unique(r_tile * n_out_tiles + s_tile)       # sorted
     r_ids = pair // n_out_tiles
-    s_ids = pair % n_out_tiles
-    counts = np.bincount(r_ids, minlength=n_tiles)
-    c_max = int(max(1, counts.max() if counts.size else 1))
-    contrib = np.full((n_tiles, c_max), -1, dtype=np.int32)
+    counts = torch.bincount(r_ids, minlength=n_tiles)
+    c_max = max(1, int(counts.max())) if counts.numel() else 1
+    contrib = torch.full((n_tiles, c_max), -1, dtype=torch.int32, device=dev)
     # r_ids is sorted: rank within its run = position − the run's start
     # (O(E), where a searchsorted over tens of millions of ids is not)
-    slot = np.arange(r_ids.size) - (np.cumsum(counts) - counts)[r_ids]
-    contrib[r_ids, slot] = s_ids
-    dev = g.device
+    contrib[r_ids, torch.arange(r_ids.numel(), device=dev)
+            - (torch.cumsum(counts, 0) - counts)[r_ids]] = \
+        (pair % n_out_tiles).to(torch.int32)
+    in2out = torch.zeros((n_pad, w_in), dtype=torch.int32, device=dev)
+    valid = torch.zeros((n_pad, w_in), dtype=torch.bool, device=dev)
+    src_tile = torch.zeros((n_pad, w_in), dtype=torch.int32, device=dev)
+    at = (dst, k_in)
+    in2out[at] = (src * w_out + k_out).to(torch.int32)
+    valid[at] = True
+    src_tile[at] = s_tile.to(torch.int32)
     return PushResolution(
         n=n, n_pad=n_pad, width=w_in, out_width=w_out,
-        block_v=block_v, block_e=block_e,
-        in2out=_to(in2out, dev), valid=_to(valid, dev),
-        src_tile=_to(src_tile, dev), tile_nnz=_to(tile_nnz, dev),
-        contrib=_to(contrib, dev))
+        block_v=block_v, block_e=block_e, in2out=in2out, valid=valid,
+        src_tile=src_tile, tile_nnz=tile_nnz, contrib=contrib)
+
+
+def to_push_resolution(g: Graph, block_v: int = 8, block_e: int = 128,
+                       min_width: int = 0,
+                       min_out_width: int = 0) -> PushResolution:
+    """Build the dst-major resolution permutation for the push sweep by the
+    reference's exact slot rules (``_fill_order_slots``/``_padded_width``),
+    on the graph's device."""
+    e = g.by_dst
+    w_in = max(_padded_width(g.in_deg, block_e), int(min_width))
+    w_out = max(_padded_width(g.out_deg, block_e), int(min_out_width))
+    return _resolution_from_slots(
+        g.n, e.src, e.dst, _fill_order_slots(e.dst, g.n),
+        _fill_order_slots(e.src, g.n), w_in, w_out, block_v, block_e)
 
 
 _RES_CACHE: dict = {}
@@ -535,12 +571,22 @@ def push_resolution_cached(g: Graph, block_v: int = 8,
                                               block_e=block_e))
 
 
+# Per-graph edge→slot maps kept by ``graph.mutate``: in a PATCHED layout an
+# edge's slot is wherever a free slot was, not the left-to-right fill order,
+# so a mutation records the actual (k_in, k_out) per edge (int64 tensors on
+# the graph's device, aligned to ``host_edges`` order) here, and a chained
+# mutation patches from them.  The same (identity key, weakref, finalizer)
+# contract as every other structure cache.
+_SLOT_CACHE: dict = {}
+
+
 def clear_graph_caches(g: Graph) -> int:
-    """Drop every cached derived structure of ONE graph; returns the number
-    of entries dropped."""
+    """Drop every cached derived structure of ONE graph (layouts,
+    resolutions, degrees, validation summary, statistics and mutation slot
+    maps); returns the number of entries dropped."""
     dropped = 0
     for cache in (_ELL_CACHE, _RES_CACHE, _WDEG_CACHE, _VALID_CACHE,
-                  _STATS_CACHE):
+                  _STATS_CACHE, _SLOT_CACHE):
         stale = [k for k, (ref, _) in list(cache.items()) if ref() is g]
         for k in stale:
             if cache.pop(k, None) is not None:

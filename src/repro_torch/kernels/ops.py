@@ -28,8 +28,10 @@ reference's ``(init, step)`` pair: a per-call set-up (``_Fixpoint``),
 ``_init_carry`` and ``_advance(carry, k_stop)``, the one loop body.  The
 monolithic query is ``_advance(_init_carry(), max_iter)``; a chunked one
 (checkpointed, resumed or warm-started) calls ``_advance`` once per chunk
-on the same carry, so both are bitwise the same.  ``delta=`` seeding
-belongs to a later slice.
+on the same carry, so both are bitwise the same.  ``delta=`` (a
+mutation's touched vertex ids, with ``init_state``) replaces the warm
+start's all-ones frontier with exactly those vertices before the first
+chunk; the loop body is the same.
 
 ``iterate_cuda_batch`` (the port of ``iterate_pallas_batch``) runs B
 queries of one round over the one shared layout: the carry gains a slot
@@ -191,7 +193,7 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
                  divergence_sentinel: bool = True,
                  init_state=None, checkpoint_every: Optional[int] = None,
                  ckpt_dir=None, resume: bool = False, fault_hook=None,
-                 plan=None) -> iterate.IterationResult:
+                 delta=None, plan=None) -> iterate.IterationResult:
     """Fixpoint of the fused reduction with CUDA edge sweeps on the graph's
     device (the plain versions of the kernels when the graph lies on the
     CPU).
@@ -215,6 +217,16 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
         per-component [n] tensors or arrays to warm-start from (e.g. a
         previous query's converged state); padding keeps the identity and
         the frontier starts all ones.
+    ``delta``
+        vertex ids whose values may have changed (a mutation's touched set,
+        ``mutate.MutationDelta.touched``): the warm-started frontier holds
+        exactly these vertices instead of all ones (padding rows inactive),
+        so an idempotent round after a small insert-only edit converges in a
+        few frontier-sized sweeps, bitwise the cold query's.  Needs
+        ``init_state``; a non-idempotent round needs ``tol > 0``, its
+        convergence to the unique attractive fixpoint being a tolerance
+        statement.  A resumed snapshot carries its own frontier, so the
+        seed applies only where no snapshot was restored.
     ``checkpoint_every`` / ``ckpt_dir`` / ``resume``
         run the loop in chunks of ``checkpoint_every`` iterations and
         snapshot the carry through ``checkpoint.FixpointCheckpointer``
@@ -235,6 +247,8 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
         raise ValueError("checkpoint_every must be >= 1")
     if (checkpoint_every is not None or resume) and ckpt_dir is None:
         raise ValueError("checkpoint_every/resume require ckpt_dir")
+    if delta is not None:
+        delta = _check_delta(g, plans, tol, init_state, delta)
     with _kernel_faults():
         fx = _Fixpoint(g, comps, plans, max_iter, tol, direction,
                        dense_threshold, switch_k, push_resolution,
@@ -251,6 +265,8 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
         carry = _from_snapshot(restored)
     elif init_state is not None:
         carry = _warm_start_carry(carry, comps, init_state, g.n)
+        if delta is not None:
+            carry = _delta_seeded(carry, delta)
     # without checkpoint_every one chunk runs the whole query
     chunk = int(checkpoint_every) if checkpoint_every else max_iter
     while carry[2] < max_iter:
@@ -267,6 +283,32 @@ def iterate_cuda(g: Graph, comps, plans, max_iter: Optional[int] = None,
             break
     with _kernel_faults():
         return _finish(fx, carry)
+
+
+def _check_delta(g, plans, tol, init_state, delta) -> np.ndarray:
+    """The reference's guards on a delta seed; the ids as int64."""
+    if init_state is None:
+        raise ValueError(
+            "delta= seeds the frontier of a warm start; pass init_state= "
+            "(the previous solution) with it")
+    if not all(iterate.plan_idempotent(p) for p in plans) and not tol > 0:
+        raise ValueError(
+            "delta warm start of a non-idempotent round requires tol > 0:"
+            " convergence to the unique attractive fixpoint is a "
+            "tolerance statement, not a bitwise one (DESIGN.md §15)")
+    ids = np.asarray(delta, dtype=np.int64).ravel()
+    if ids.size and (ids.min() < 0 or ids.max() >= g.n):
+        raise ValueError(f"delta vertex ids out of range [0, {g.n})")
+    return ids
+
+
+def _delta_seeded(carry, delta: np.ndarray) -> tuple:
+    """The warm carry with its all-ones frontier replaced by exactly the
+    ``delta`` vertices: the first sweep propagates only from them, padding
+    rows stay inactive."""
+    active = torch.zeros_like(carry[1])
+    active[torch.from_numpy(delta).to(active.device)] = True
+    return (carry[0], active) + tuple(carry[2:])
 
 
 class _Fixpoint:

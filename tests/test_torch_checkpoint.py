@@ -259,8 +259,9 @@ def test_checkpoint_knobs_rejected_off_cuda(g, tmp_path):
     with pytest.raises(ValueError, match="cuda"):
         TE.run_program(g, prog, engine="dense", device="cpu",
                        return_state=True)
-    with pytest.raises(NotImplementedError, match="incremental"):
-        TE.run_direct(g, dk, engine="cuda", device="cpu", delta=[0])
+    with pytest.raises(ValueError, match="cuda"):
+        TE.run_direct(g, dk, engine="pull", device="cpu",
+                      init_state=[np.zeros(g.n, np.int32)], delta=[0])
 
 
 def test_return_state_warm_starts_the_same_query(g):

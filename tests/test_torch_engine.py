@@ -174,9 +174,9 @@ def test_cuda_engine_matches_path_oracle(small_graphs):
 def test_entry_points_guard_device_and_later_kwargs(monkeypatch):
     _jg, tg = _pair()
     prog = TF.fuse(TU.ALL_SPECS["BFS"]())
-    with pytest.raises(NotImplementedError, match="incremental"):
+    with pytest.raises(NotImplementedError, match="sharded engines"):
         TE.run_program(tg, prog, engine="cuda", device="cpu",
-                       delta=[0])
+                       mesh=object())
     with pytest.raises(ValueError, match="graph lives on"):
         TE.run_program(tg, prog, engine="cuda", device="meta")
     plan = TE.run_program(tg, prog, engine="auto", device="cpu",

@@ -171,15 +171,23 @@ def test_kernels_match_plain_on_card(cuda_device, name, density):
     the push launch."""
     dev = cuda_device
     g, rnd, act, od, wd, st = _card_inputs(dev, name, density)
-    ein, eout = TS.to_blocked_ell(g), TS.to_blocked_ell(g, direction="out")
-    res = TS.to_push_resolution(g)
+    _check_sweeps(rnd, act, od, wd, st, float(g.n), TS.to_blocked_ell(g),
+                  TS.to_blocked_ell(g, direction="out"),
+                  TS.to_push_resolution(g))
+
+
+def _check_sweeps(rnd, act, od, wd, st, nv, ein, eout, res):
+    """The pull, push and resolve kernels on layouts ``ein`` / ``eout`` and
+    resolution ``res`` against their plain versions (the body of
+    ``test_kernels_match_plain_on_card``)."""
+    dev = act.device
     t_in = TER.tile_activity(ein.nbrs, ein.mask, ein.tile_nnz, act)
     t_out = TER.tile_activity_push(eout.tile_nnz, act)
     t_res = TER.resolution_tile_activity(res.contrib, t_out, res.tile_nnz)
     pull_args = (rnd, t_in, ein.nbrs, ein.weight, ein.capacity, ein.mask,
-                 act, od, wd, st, float(g.n), True)
+                 act, od, wd, st, nv, True)
     push_args = (rnd, t_out, eout.nbrs, eout.weight, eout.capacity,
-                 eout.mask, act, od, wd, st, float(g.n))
+                 eout.mask, act, od, wd, st, nv)
     res_args = (res.valid, res.in2out)
     res_kw = dict(push_tile_act=t_out, width_out=eout.width, states=st,
                   need_hp=True)
@@ -1061,3 +1069,237 @@ def test_continuous_batching_on_card(cuda_device):
     for s, got in answers.items():
         want = TE.run_program(g, prog, engine="cuda", source=s).value
         assert torch.equal(_bits(got), _bits(want)), s
+
+
+# ---------------------------------------------------------------------------
+# Incremental fixpoints: the layout patch on the card, the sweeps on patched
+# layouts, delta-seeded queries.
+# ---------------------------------------------------------------------------
+
+def _warm_layouts(g):
+    for d in ("in", "out"):
+        TS.blocked_ell_cached(g, direction=d)
+    TS.push_resolution_cached(g)
+
+
+def _cached(g):
+    """The layouts, resolution and slot maps cached for ``g``, by key."""
+    out = {}
+    for name, cache in (("ell", TS._ELL_CACHE), ("res", TS._RES_CACHE),
+                        ("slots", TS._SLOT_CACHE)):
+        for k, (ref, v) in cache.items():
+            if k[0] == id(g) and ref() is g:
+                out[(name,) + k[1:]] = v
+    return out
+
+
+def _same_cached(a, b):
+    """Two graphs' cached derived structures, field by field, bitwise (a
+    card tensor against a host one)."""
+    ca, cb = _cached(a), _cached(b)
+    assert sorted(ca) == sorted(cb)
+    for key, va in ca.items():
+        vb = cb[key]
+        if key[0] == "slots":
+            for x, y in zip(va, vb):
+                assert x.device.type == "cuda" and torch.equal(x.cpu(), y)
+            continue
+        for f in dataclasses.fields(va):
+            x, y = getattr(va, f.name), getattr(vb, f.name)
+            if isinstance(x, torch.Tensor):
+                assert x.device.type == "cuda" and x.dtype == y.dtype
+                assert torch.equal(x.cpu(), y), (key, f.name)
+            else:
+                assert x == y, (key, f.name)
+
+
+def _mutate_pair(g, gc, **kw):
+    from repro_torch.graph import mutate as TM
+    g2, md = TM.mutate_edges(g, **kw)
+    gc2, mdc = TM.mutate_edges(gc, **kw)
+    for f in ("inserted", "deleted", "has_deletes", "patched_layouts",
+              "rebuilt_layouts"):
+        assert getattr(md, f) == getattr(mdc, f), f
+    assert np.array_equal(md.touched, mdc.touched)
+    assert g2.device.type == "cuda"
+    _same_cached(g2, gc2)
+    return g2, md, gc2
+
+
+@pytest.mark.gpu
+def test_incremental_device_patch_matches_host_patch(cuda_device):
+    """The patch on the card gives, field by field, the host patch's
+    layouts, resolution and slot maps: inserts and deletes, a chained
+    mutation, and a row overflow (a counted rebuild of the in-layout, the
+    out-layout and the resolution patched)."""
+    g = TS.rmat_graph(4096, 65536, seed=7, device=cuda_device)
+    gc = TS.from_arrays(g.n, *g.host_edges(), device="cpu")
+    _warm_layouts(g)
+    _warm_layouts(gc)
+    src, dst, _w, _c = gc.host_edges()
+    rng = np.random.default_rng(7)
+    k = int(gc.num_edges * 0.005)
+    gone = rng.choice(gc.num_edges, 200, replace=False)
+    ins = (rng.integers(0, g.n, k), rng.integers(0, g.n, k),
+           (0.1 + rng.random(k)).astype(np.float32))
+    g2, md, gc2 = _mutate_pair(g, gc, insert=ins,
+                               delete=(src[gone], dst[gone]))
+    assert md.patched_layouts == 3 and md.rebuilt_layouts == 0
+    ins2 = (rng.integers(0, g.n, 64), rng.integers(0, g.n, 64))
+    g3, md3, _gc3 = _mutate_pair(g2, gc2, insert=ins2)
+    assert md3.patched_layouts == 3
+    e_in = TS.blocked_ell_cached(gc, direction="in")
+    hub = int(torch.argmax(gc.in_deg))
+    free = e_in.width - int(gc.in_deg[hub])
+    over = (rng.choice(np.setdiff1d(np.arange(g.n), [hub]), free + 1,
+                       replace=False), np.full(free + 1, hub))
+    _g4, md4, _gc4 = _mutate_pair(g, gc, insert=over)
+    assert md4.rebuilt_layouts == 1 and md4.patched_layouts == 2
+
+
+def _patched_inputs(dev, name, density):
+    """RM-XS on the card, mutated: every edge into or out of rows 8..15
+    deleted (their tiles empty in both layouts and the resolution) and 64
+    random edges inserted, so live tiles hold freed and non-canonical
+    slots.  Returns the inputs of ``_check_sweeps`` on the patched
+    layouts."""
+    from repro_torch.graph import mutate as TM
+    g, rnd, act, _od, _wd, st = _card_inputs(dev, name, density)
+    _warm_layouts(g)
+    src, dst, _w, _c = g.host_edges()
+    hit = ((dst >= 8) & (dst < 16)) | ((src >= 8) & (src < 16))
+    rng = np.random.default_rng(9)
+    ins = (rng.integers(16, g.n, 64), rng.integers(16, g.n, 64),
+           (0.1 + rng.random(64)).astype(np.float32))
+    g2, md = TM.mutate_edges(g, insert=ins, delete=(src[hit], dst[hit]))
+    assert md.patched_layouts == 3
+    ein = TS.blocked_ell_cached(g2, direction="in")
+    eout = TS.blocked_ell_cached(g2, direction="out")
+    res = TS.push_resolution_cached(g2)
+    for t in (ein.tile_nnz, eout.tile_nnz, res.tile_nnz):
+        assert int(t[1].sum()) == 0                   # freshly emptied
+    assert int(TS.blocked_ell_cached(g, direction="in").tile_nnz[1].sum()) > 0
+    od = torch.ones(ein.n_pad, device=dev)
+    od[:g2.n] = g2.out_deg.clamp(min=1).float()
+    wd = torch.ones(ein.n_pad, device=dev)
+    wd[:g2.n] = TS.w_out_deg(g2)
+    return g2, rnd, act, od, wd, st, ein, eout, res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [0.05, 1.0])
+@pytest.mark.parametrize("name", ["BFS", "WSP", "WPR"])
+def test_incremental_sweeps_on_patched_layouts_match_plain(cuda_device, name,
+                                                           density):
+    """The pull, push and resolve kernels on patched layouts (freed slots
+    pointing at vertex 0, inserts in non-canonical slots, freshly emptied
+    tiles, a resolution from explicit slot maps) against their plain
+    versions, the push buffer poisoned as in the other cases; the derived
+    pull's activity against the torch one, which ignores freed slots."""
+    g2, rnd, act, od, wd, st, ein, eout, res = _patched_inputs(
+        cuda_device, name, density)
+    _check_sweeps(rnd, act, od, wd, st, float(g2.n), ein, eout, res)
+    args = (ein.nbrs, ein.weight, ein.capacity, ein.mask, act, od, wd, st,
+            float(g2.n))
+    want_act = TER.tile_activity(ein.nbrs, ein.mask, ein.tile_nnz, act)
+    want = TER._pull_plain(rnd, want_act, *args, True)
+    outs, t_act = TER.pull_sweep_frontier(rnd, ein.tiles_static, *args,
+                                          need_hp=True)
+    p_outs, p_act = TER.pull_sweep_frontier(
+        rnd, ein.tiles_static, *args, need_hp=True,
+        out=_poisoned_like([*outs, t_act]))
+    torch.cuda.synchronize()
+    assert torch.equal(t_act, want_act) and torch.equal(p_act, want_act)
+    for a, b, c in zip(outs, p_outs, want):
+        assert torch.equal(_bits(a), _bits(c))
+        assert torch.equal(_bits(b), _bits(c))
+
+
+@pytest.mark.gpu
+def test_incremental_level_kernel_on_patched_layout(cuda_device):
+    """The level walk of a patched in-layout (``row_tile_walk`` derived
+    afresh from its own tile counts, a freshly emptied row tile), bitwise
+    against the plain version."""
+    g2, _rnd, _act, _od, _wd, _st, ein, _eout, _res = _patched_inputs(
+        cuda_device, "BFS", 1.0)
+    assert int(ein.row_tile_walk[1][1]) == 0
+    act, od, s_max, cases = _level_inputs(cuda_device, ein.n_pad, g2.n)
+    TER.reset_launches()
+    _check_level_cases(ein, g2.n, act, od, s_max, cases)
+    assert TER.LAUNCHES["level"] == len(cases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["BFS", "SSSP", "WP", "CC"])
+def test_incremental_delta_queries_on_card(cuda_device, name):
+    """rmat_graph(4096, 65536, seed=7) (CC on its undirected closure, each
+    insert in both directions), 0.5 % seeded inserts: the delta query on the
+    card is bitwise the cold cuda query on the mutated graph with less edge
+    work, and gives the plain versions' answer and six counters; a delete
+    batch plans "full" and matches a canonical rebuild."""
+    from repro_torch.graph import mutate as TM
+    g = TS.rmat_graph(4096, 65536, seed=7, device=cuda_device)
+    if name == "CC":
+        g = TS.undirected(g)
+    prog = TF.fuse(TU.ALL_SPECS[name]())
+    _r0, state = TE.run_program(g, prog, engine="cuda", return_state=True)
+    rng = np.random.default_rng(7)
+    k = int(g.num_edges * 0.005)
+    s, d = rng.integers(0, g.n, k), rng.integers(0, g.n, k)
+    w = (0.1 + rng.random(k)).astype(np.float32)
+    ins = (np.concatenate([s, d]), np.concatenate([d, s]),
+           np.concatenate([w, w])) if name == "CC" else (s, d, w)
+    g2, md = TM.mutate_edges(g, insert=ins)
+    assert md.patched_layouts == 3 and md.rebuilt_layouts == 0
+    TER.reset_launches()
+    warm = TE.run_program(g2, prog, engine="cuda", init_state=state,
+                          delta=md)
+    torch.cuda.synchronize()
+    assert warm.stats.plan.incremental == "delta"
+    assert TER.LAUNCHES["pull"] + TER.LAUNCHES["push"] > 0
+    cold = TE.run_program(g2, prog, engine="cuda")
+    assert torch.equal(_bits(warm.value), _bits(cold.value))
+    assert warm.stats.edge_work < cold.stats.edge_work
+    gc = TS.from_arrays(g.n, *g.host_edges(), device="cpu")
+    _warm_layouts(gc)
+    gc2, mdc = TM.mutate_edges(gc, insert=ins)
+    plain = TE.run_program(gc2, prog, engine="cuda", device="cpu",
+                           init_state=[t.cpu() for t in state], delta=mdc)
+    assert torch.equal(warm.value.cpu(), plain.value)
+    assert _counters(warm.stats) == _counters(plain.stats)
+    src, dst, _w, _c = gc.host_edges()
+    gone = rng.choice(gc.num_edges, 100, replace=False)
+    g3, md3 = TM.mutate_edges(g, delete=(src[gone], dst[gone]))
+    full = TE.run_program(g3, prog, engine="cuda", init_state=state,
+                          delta=md3)
+    assert full.stats.plan.incremental == "full"
+    canon = TE.run_program(TS.from_arrays(g.n, *g3.host_edges(),
+                                          device=cuda_device), prog,
+                           engine="cuda")
+    assert torch.equal(_bits(full.value), _bits(canon.value))
+
+
+@pytest.mark.gpu
+def test_incremental_pagerank_delta_on_card(cuda_device):
+    """PageRank's rescaled warm delta on the card: within a hundredth of
+    the mean rank of the cold query, in no more iterations, with the
+    tolerance scaled to the mean rank 1/n as the smoke scales it; the cold
+    query on the patched layouts allclose to the pull engine."""
+    from repro_torch.graph import mutate as TM
+    g = TS.rmat_graph(4096, 65536, seed=7, device=cuda_device)
+    _warm_layouts(g)
+    dk = TSy.pagerank_kernels(g.n, tol=1e-4 / g.n)
+    prev = TE.run_direct(g, dk, engine="cuda")
+    rng = np.random.default_rng(7)
+    k = int(g.num_edges * 0.005)
+    g2, md = TM.mutate_edges(g, insert=(rng.integers(0, g.n, k),
+                                        rng.integers(0, g.n, k)))
+    cold = TE.run_direct(g2, dk, engine="cuda")
+    warm = TE.run_direct(g2, dk, engine="cuda", init_state=[prev.value],
+                         delta=md)
+    assert warm.stats.plan.incremental == "delta"
+    assert warm.stats.iterations <= cold.stats.iterations
+    torch.testing.assert_close(warm.value, cold.value, rtol=0,
+                               atol=1e-2 / g.n)
+    pull = TE.run_direct(g2, dk, engine="pull")
+    torch.testing.assert_close(cold.value, pull.value, rtol=1e-5, atol=1e-8)

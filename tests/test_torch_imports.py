@@ -50,3 +50,27 @@ def test_no_jax_or_reference_imports_in_sources():
             bad.append(f"{f.relative_to(ROOT)}: {m.group(0).strip()}")
     assert not bad, bad
     assert (ROOT / "chip_smoke.py").is_file()
+
+
+def test_graph_package_imports_without_mutate():
+    """``repro_torch.graph`` does not pull in ``graph.mutate``, and
+    ``graph.mutate`` imports first, on its own, with no cycle through
+    ``core.guard``."""
+    code = textwrap.dedent("""
+        import sys
+        import repro_torch.graph
+        assert "repro_torch.graph.mutate" not in sys.modules
+        print("ok")
+    """)
+    first = textwrap.dedent("""
+        from repro_torch.graph import mutate
+        from repro_torch.core import guard
+        assert mutate.GraphValidationError is guard.GraphValidationError
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for c in (code, first):
+        out = subprocess.run([sys.executable, "-c", c], capture_output=True,
+                             text=True, env=env, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert out.stdout.strip() == "ok"
