@@ -163,6 +163,28 @@ libraries at once, into ``build/repro_torch/``), and then
    gives the mutation's wall, device and host ms, the patched and rebuilt
    layouts, the delta and cold queries' six counters, launches and first
    and warm walls, the peak device memory and the card.
+9. serves seeded open-loop MIX traces (``service.standard_mix``: BFS and
+   SSSP from random sources, a quarter radius/drr scalars; seed 0, 16
+   arrivals per chunk's virtual time) through the continuous-batching
+   analytics service (``launch/service.py``) on the card: on RM-XS,
+   unweighted and weighted, at the reference bench's serving config (6
+   slots, chunks of 4, 16 requests), whose deterministic fields must equal
+   ``BENCH_pallas.json``'s ``serving_rows``; on the SCALE-16 graph at the
+   reference service's defaults (8 slots, chunks of 4, 8 scalars a round,
+   4 graphs) 64 requests cold, the same trace on a fresh service (equal
+   virtual metrics) and once more under torch.profiler (idle share, top
+   device ops, each batch chunk's host set-up), then 16 repeats of the
+   trace's batch-lane requests queued across ``mutate_graph`` with phase
+   8's perturbation and drained (warm joins >= 1, every repeat bitwise
+   its solo query on the mutated graph); on the uniform graph 32
+   requests.  Each trace's answers pass ``verify_sequential`` (bitwise
+   their solo queries, whose walls are summed) and are held bitwise
+   against the pull engine (scalars as float64; on the uniform graph the
+   first 4 of each lane); every query stays on ``cuda`` with no fallback
+   and the carried lane state stays a card tensor.  Each line gives the
+   virtual and wall metrics, launches per kernel, the libraries the trace
+   built and their nvcc seconds, the chunks' host set-up, the lane-state
+   and memo bytes and the peak device memory.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -171,6 +193,7 @@ numbers; the last line is the JSON result.  Details also go to
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -2081,6 +2104,314 @@ def main(argv) -> int:
         delta_case(label, g2, md, mrow, program(name), state)
         drop(g2)
 
+    # ------------------------------------------------------------------
+    # Phase 9: the continuous-batching analytics service
+    # (launch/service.py) driven by seeded open-loop traces through its
+    # entry points, on the card, while the graphs it needs live.  Every
+    # query it runs must stay on the cuda engine with no fallback; the
+    # sweep kernels' launch counts are set to 0 just before each trace and
+    # read just after (none counts for the main path).
+    # ------------------------------------------------------------------
+    from repro_torch.launch import service as SV
+    phase9_rows = []
+    serving_launches = dict.fromkeys(ER.LAUNCHES, 0)
+    serving_fields = ("completed", "batch_launches", "queries_per_launch",
+                      "occupancy", "scalar_rounds", "scalar_fused",
+                      "solo_runs", "total_iterations", "v_p50_ms",
+                      "v_p99_ms", "v_qps")
+    chunk_log = []             # per batch chunk: host set-up, loop, total
+    widest = []                # components of each fused scalar round
+
+    @contextlib.contextmanager
+    def serving_watch():
+        """Hold every cuda query to its engine, keep the carried lane state
+        a card tensor, and time each batch chunk's host set-up (entry of
+        run_program_batch to the first sweep of ``_advance_batch``)."""
+        real_batch, real_solo = TE.run_program_batch, TE.run_program
+        real_adv = KO._advance_batch
+        mark = {}
+
+        def batch(*a, **kw):
+            mark["t0"] = time.perf_counter()
+            outs, state = real_batch(*a, **kw)
+            t2 = time.perf_counter()
+            for o in outs:
+                on_cuda(o, "phase 9 batch chunk")
+            if not all(s.device.type == "cuda" for s in state):
+                raise RuntimeError("phase 9: the lane state left the card")
+            init = kw.get("init_state")
+            if init is not None and not all(
+                    isinstance(s, torch.Tensor) and s.device.type == "cuda"
+                    for s in init):
+                raise RuntimeError("phase 9: a chunk's init_state is not a "
+                                   "card tensor")
+            chunk_log.append({
+                "setup_ms": (mark["t1"] - mark["t0"]) * 1e3,
+                "loop_ms": (mark["t2"] - mark["t1"]) * 1e3,
+                "total_ms": (t2 - mark["t0"]) * 1e3,
+                "state_bytes": sum(s.numel() * s.element_size()
+                                   for s in state)})
+            return outs, state
+
+        def advance(*a, **kw):
+            mark["t1"] = time.perf_counter()
+            out = real_adv(*a, **kw)
+            mark["t2"] = time.perf_counter()
+            return out
+
+        def solo(*a, **kw):
+            r = real_solo(*a, **kw)
+            if kw.get("engine") == "cuda":
+                on_cuda(r, "phase 9 query")
+                rnd = a[1].rounds[0][1]
+                if rnd.multi_out:      # a fused scalar round
+                    widest.append(len(rnd.components))
+            return r
+
+        TE.run_program_batch, TE.run_program = batch, solo
+        KO._advance_batch = advance
+        try:
+            yield
+        finally:
+            TE.run_program_batch, TE.run_program = real_batch, real_solo
+            KO._advance_batch = real_adv
+
+    def chunk_summary(rows):
+        if not rows:
+            return {}
+        out = {"chunks": len(rows)}
+        for key in ("setup_ms", "loop_ms", "total_ms"):
+            vals = [r[key] for r in rows]
+            out[key] = {"median": statistics.median(vals),
+                        "mean": statistics.fmean(vals), "max": max(vals),
+                        "sum": sum(vals)}
+        out["lane_state_bytes_max"] = max(r["state_bytes"] for r in rows)
+        return out
+
+    def serve(label, g, n_req, cfg_kw=None, profiled_run=False):
+        """One seeded open-loop MIX trace (standard_mix, seed 0, 16
+        arrivals per chunk's virtual time) on a fresh service at
+        ``cfg_kw`` (the reference's defaults where absent): its metrics,
+        launches, libraries built and their nvcc seconds, chunk set-up,
+        lane-state and memo bytes and peak memory.  Under
+        ``profiled_run`` the trace runs under torch.profiler."""
+        cfg = SV.ServiceConfig(**(cfg_kw or {}))
+        svc = SV.AnalyticsService(cfg)
+        svc.add_graph(label, g)
+        svc.register("BFS", TU.bfs)
+        svc.register("SSSP", TU.sssp)
+        rate = 16.0 / (cfg.launch_overhead_s
+                       + cfg.chunk_iters * cfg.iter_cost_s)
+        arrivals = SV.open_loop_arrivals(
+            n_req, rate=rate, seed=0,
+            make_request=SV.standard_mix(label, g.n))
+        built = dict(build.BUILD_SECONDS)
+        torch.cuda.empty_cache()
+        reset_peak()
+        del chunk_log[:], widest[:]
+        ER.reset_launches()
+        torch.cuda.synchronize()
+        prof = None
+        with serving_watch():
+            if profiled_run:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    m = svc.run_open_loop(arrivals)
+                    torch.cuda.synchronize()
+            else:
+                m = svc.run_open_loop(arrivals)
+                torch.cuda.synchronize()
+        launched = dict(ER.LAUNCHES)
+        for k, v in launched.items():
+            serving_launches[k] += v
+        new = {k: v for k, v in build.BUILD_SECONDS.items()
+               if k not in built}
+        row = {"graph": label, "n": g.n, "edges": g.num_edges,
+               "requests": n_req, "config": dataclasses.asdict(cfg)
+               | {"device": str(cfg.device)},
+               "metrics": m, "launches": launched,
+               "libraries_built": len(new),
+               "nvcc_s": sum(new.values()),
+               "wall_less_nvcc_s": m["wall_s"] - sum(new.values()),
+               "chunk_host": chunk_summary(chunk_log),
+               "scalar_round_components": list(widest),
+               **svc.state_bytes(),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "card": card}
+        return svc, row, prof
+
+    def verify(svc, row, g, oracle_per_lane=None):
+        """verify_sequential (each answer bitwise its solo cuda query,
+        the solo walls summed) and every batch-lane and scalar answer (the
+        first ``oracle_per_lane`` of each lane, where given) bitwise the
+        pull engine's, scalars as float64."""
+        walls = {}
+        with serving_watch():
+            checked = SV.verify_sequential(svc, solo_walls=walls)
+        if checked != row["requests"]:
+            raise RuntimeError(f"phase 9 {row['graph']}: verify_sequential "
+                               f"checked {checked} of {row['requests']}")
+        held = {"batch": 0, "scalar": 0}
+        for req in svc.completed:
+            if req.lane not in held:
+                continue
+            if oracle_per_lane is not None and \
+                    held[req.lane] >= oracle_per_lane:
+                continue
+            if req.lane == "batch":
+                prog = svc._kinds[req.kind][1]
+                want = TE.run_program(g, prog, engine="pull",
+                                      source=req.source).value
+                ok = req.value.tobytes() == want.cpu().numpy().tobytes()
+            else:
+                want = TE.run_program(g, TF.fuse(req.spec),
+                                      engine="pull").value
+                ok = np.float64(req.value).tobytes() == \
+                    np.float64(float(want)).tobytes()
+            if not ok:
+                raise RuntimeError(f"phase 9 {row['graph']}: request "
+                                   f"{req.rid} ({req.lane}) differs from "
+                                   "the pull engine")
+            held[req.lane] += 1
+        row.update(verified_bitwise=checked, pull_checked=held,
+                   solo_wall_s_sum=sum(walls.values()),
+                   served_wall_s=row["metrics"]["wall_s"])
+
+    def log9(tag, row):
+        log(f"phase 9 {tag} " + json.dumps(row))
+        phase9_rows.append(dict(row, tag=tag))
+
+    def phase9_rmxs():
+        """The reference bench's serving rows (BENCH_pallas.json
+        serving_rows) on rmat_graph(400, 3200, seed=11), unweighted and
+        weighted: 6 slots, chunks of 4, 16 requests; every deterministic
+        field met exactly."""
+        bench_rows = json.loads((ROOT / "BENCH_pallas.json").read_text())[
+            "serving_rows"]
+        for weighted in (False, True):
+            gx9 = TS.rmat_graph(400, 3200, seed=11, weighted=weighted,
+                                device=dev)
+            label = f"RM-XS {'w' if weighted else 'unw'}"
+            svc, row, _ = serve(label, gx9, 16,
+                                dict(max_batch=6, chunk_iters=4))
+            verify(svc, row, gx9)
+            want = [r for r in bench_rows if r["weighted"] == weighted][0]
+            got = {k: row["metrics"][k] for k in serving_fields}
+            row["bench_row_met"] = got == {k: want[k]
+                                           for k in serving_fields}
+            log9("RM-XS", row)
+            if not row["bench_row_met"]:
+                raise RuntimeError(f"phase 9 {label}: {got} against "
+                                   f"BENCH_pallas.json {want}")
+            TE.clear_graph_caches(gx9)
+
+    def virtual(m):
+        return {k: v for k, v in m.items() if not k.startswith("wall")}
+
+    def phase9_rmat16(g):
+        """64 requests at the reference service's defaults (cold pass),
+        the same trace on a fresh service (warm pass: equal virtual
+        metrics) and once more under torch.profiler; then on the first
+        service 16 repeats of its batch-lane requests, phase 8's
+        perturbation through mutate_graph under them, and a drain: the
+        repeats join warm and equal the solo queries on the mutated
+        graph."""
+        svc1, cold, _ = serve("rmat16", g, 64)
+        verify(svc1, cold, g)
+        log9("rmat16 cold", cold)
+        svc2, warm, _ = serve("rmat16", g, 64)
+        verify(svc2, warm, g)
+        warm["virtual_equal_cold"] = virtual(warm["metrics"]) == \
+            virtual(cold["metrics"])
+        log9("rmat16 warm", warm)
+        if not warm["virtual_equal_cold"]:
+            raise RuntimeError("phase 9 rmat16: the warm pass's virtual "
+                               "metrics differ from the cold pass's")
+        del svc2
+        _svc3, prow, prof = serve("rmat16", g, 64, profiled_run=True)
+        ka = prof.key_averages()
+        kern = [e for e in ka if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("grafs::")]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        wall = prow["metrics"]["wall_s"] * 1e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+        summary = {"wall_ms": wall, "device_busy_ms": busy,
+                   "idle_share": max(0.0, 1.0 - busy / wall),
+                   "batch_launches": prow["metrics"]["batch_launches"],
+                   "scalar_rounds": prow["metrics"]["scalar_rounds"],
+                   "chunk_host": prow["chunk_host"],
+                   "unprofiled_chunk_host": warm["chunk_host"],
+                   "top_device_ms": {e.key[:60]: [e.count,
+                                                  e.self_device_time_total
+                                                  / 1e3] for e in top},
+                   "card": card}
+        profiles["serve rmat16"] = summary
+        log("profile serve rmat16: " + json.dumps(summary))
+        try:
+            out_dir.mkdir(exist_ok=True)
+            (out_dir / "profile_serve_rmat16.txt").write_text(
+                ka.table(sort_by="self_device_time_total", row_limit=30))
+        except OSError:
+            pass
+        del _svc3, prof, ka, kern
+        # repeats of served sources queued across an edit of the graph
+        repeats = [r for r in svc1.completed if r.lane == "batch"][:16]
+        ER.reset_launches()
+        t0 = time.perf_counter()
+        with serving_watch():
+            for i, r in enumerate(repeats):
+                svc1.submit("rmat16", SV.Request(rid=1000 + i, kind=r.kind,
+                                                 source=r.source))
+            tm = time.perf_counter()
+            md = svc1.mutate_graph("rmat16", insert=perturbation(g))
+            torch.cuda.synchronize()
+            mutate_ms = (time.perf_counter() - tm) * 1e3
+            while svc1.step():
+                pass
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launched = dict(ER.LAUNCHES)
+        for k, v in launched.items():
+            serving_launches[k] += v
+        g2 = svc1.graphs["rmat16"]
+        after = [r for r in svc1.completed if r.rid >= 1000]
+        same = len(after) == len(repeats) and all(
+            r.value.tobytes() == on_cuda(TE.run_program(
+                g2, svc1._kinds[r.kind][1], engine="cuda",
+                source=r.source)).value.cpu().numpy().tobytes()
+            for r in after)
+        m = svc1.metrics()
+        row = {"graph": "rmat16", "repeats": len(repeats),
+               "inserted": md.inserted,
+               "patched_layouts": md.patched_layouts,
+               "rebuilt_layouts": md.rebuilt_layouts,
+               "warm_joins": m["warm_joins"],
+               "drain_launches": m["drain_launches"],
+               "batch_launches_after": m["batch_launches"]
+               - cold["metrics"]["batch_launches"],
+               "mutate_ms": mutate_ms, "wall_ms": wall,
+               "launches": launched, **svc1.state_bytes(),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "card": card, "match": "bitwise" if same else "MISMATCH"}
+        log9("rmat16 mutate", row)
+        if not same or m["warm_joins"] < 1:
+            raise RuntimeError(f"phase 9 rmat16 mutation: answers "
+                               f"{'equal' if same else 'differ'}, warm "
+                               f"joins {m['warm_joins']}")
+        TE.clear_graph_caches(g2)
+        del svc1, g2
+        torch.cuda.empty_cache()
+
+    def phase9_uniform21(g):
+        """32 requests at the reference service's defaults; the first 4
+        answers of each lane held against the pull engine."""
+        svc, row, _ = serve("uniform21", g, 32)
+        verify(svc, row, g, oracle_per_lane=4)
+        row["max_scalar_fuse_cut"] = None
+        log9("uniform21", row)
+        del svc
+        torch.cuda.empty_cache()
+
     setup("rmat16", g16)
     ER.reset_launches()
     for name in ("BFS", "SSSP", "WSP"):
@@ -2124,6 +2455,10 @@ def main(argv) -> int:
     t8 = time.perf_counter()
     phase8_rmat16(g16)
     phase8_s = time.perf_counter() - t8
+    t9 = time.perf_counter()
+    phase9_rmxs()
+    phase9_rmat16(g16)
+    phase9_s = time.perf_counter() - t9
     gu16 = TS.undirected(g16)
     TE.clear_graph_caches(g16)
     torch.cuda.empty_cache()
@@ -2197,6 +2532,17 @@ def main(argv) -> int:
     log(f"phase 7: {phase7_s:.1f} s")
     record["phase7"] = phase7_rows
     record["phase7_s"] = phase7_s
+    t9 = time.perf_counter()
+    phase9_uniform21(gu)
+    phase9_s += time.perf_counter() - t9
+    log(f"phase 9: {phase9_s:.1f} s, launches {json.dumps(serving_launches)}")
+    for kname in MAIN_KERNELS:
+        if serving_launches[kname] <= 0:
+            raise RuntimeError(f"the {kname} kernel never launched in "
+                               "phase 9's serving traces")
+    record["phase9"] = phase9_rows
+    record["phase9_s"] = phase9_s
+    record["serving_launches"] = serving_launches
     t8 = time.perf_counter()
     phase8_single("BFS uniform21", gu, "BFS")
     phase8_s += time.perf_counter() - t8
@@ -2390,6 +2736,8 @@ def main(argv) -> int:
         # and its launches in phase 8's delta queries
         row["incremental_launches"] = sum(r["launches"][kname]
                                           for r in phase8_rows)
+        # and in phase 9's serving traces
+        row["serving_launches"] = serving_launches[kname]
     kernels[0]["batched"].update(
         given_ms=batch_ref["pull_given"]["ms"],
         given_solo_ms=batch_ref["pull_given"]["solo_ms"],
@@ -2407,6 +2755,7 @@ def main(argv) -> int:
             "route": "cuda",
             "source": SOURCES[kname], "replaces": REPLACES[kname],
             "launches": phase_launches[kname],
+            "serving_launches": serving_launches.get(kname, 0),
             **{key: c[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms", "cuda_core_bound_ms",

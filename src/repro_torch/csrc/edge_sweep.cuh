@@ -88,7 +88,13 @@ constexpr int BLOCK_V = 8;
 constexpr int BLOCK_E = 128;
 constexpr int SLOTS = 4;                 // slots per lane
 constexpr int THREADS = BLOCK_V * 32;
-constexpr int MAX_PTRS = 16;
+// Pointers in one Ptrs argument: 16 unless the round unit defines more
+// before including this header (a round of more levels and components, such
+// as the service's fused scalar rounds).
+#ifndef GRAFS_MAX_PTRS
+#define GRAFS_MAX_PTRS 16
+#endif
+constexpr int MAX_PTRS = GRAFS_MAX_PTRS;
 
 enum { OP_MIN = 0, OP_MAX = 1, OP_SUM = 2, OP_PROD = 3 };
 

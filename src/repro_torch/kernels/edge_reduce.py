@@ -80,7 +80,8 @@ BLOCK_V = 8
 BLOCK_E = 128
 _LANES = 32
 _SLOTS = BLOCK_E // _LANES
-_MAX_PTRS = 16
+_MAX_PTRS = 16                   # pointers in a kernel's Ptrs argument ...
+_PTRS_CAP = 64                   # ... widened per round unit up to this
 _PLAIN_CHUNK = 1 << 24           # slots per plain-version chunk (memory cap)
 # A batched launch walks its (tile, slot) items tile-major, so that a
 # layout tile comes from device memory once for all its query slots, unless
@@ -143,6 +144,11 @@ class SweepRound:
         self.p_exprs = None if p_exprs is None else \
             [p_exprs.get(c) for c in self.comps_order]
         self.n_levels = sum(len(s) for s in self.plan_specs)
+        # a wide round (more outputs than the default Ptrs holds) gets its
+        # own wider Ptrs; every other round keeps the default, and with it
+        # its unit's source and library
+        need = self.n_levels + len(self.comps_order)
+        self.max_ptrs = max(_MAX_PTRS, -(-need // _MAX_PTRS) * _MAX_PTRS)
         self._lib = None
 
     def source(self) -> str:
@@ -151,15 +157,18 @@ class SweepRound:
             raise KernelBuildError(
                 "this round has no P expression for every component, so no "
                 "CUDA kernel can be generated for it")
-        if self.n_levels + len(self.comps_order) > _MAX_PTRS:
+        if self.max_ptrs > _PTRS_CAP:
             raise KernelBuildError(f"round too wide for the sweep kernels: "
                                    f"{self.n_levels} levels + "
                                    f"{len(self.comps_order)} components > "
-                                   f"{_MAX_PTRS} outputs")
-        return emit_cuda_round(
+                                   f"{_PTRS_CAP} outputs")
+        src = emit_cuda_round(
             self.p_exprs,
             ["float" if d == torch.float32 else "int" for d in self.dtypes],
             self.idents, self.plan_specs)
+        if self.max_ptrs > _MAX_PTRS:
+            src = f"#define GRAFS_MAX_PTRS {self.max_ptrs}\n" + src
+        return src
 
     def library(self):
         if self._lib is None:
@@ -247,7 +256,7 @@ def _tiles_to_rows(tile_act):
 # ---------------------------------------------------------------------------
 
 def _ptrs(tensors):
-    arr = (ctypes.c_void_p * _MAX_PTRS)()
+    arr = (ctypes.c_void_p * max(_MAX_PTRS, len(tensors)))()
     for k, t in enumerate(tensors):
         arr[k] = t.data_ptr()
     return arr

@@ -54,3 +54,41 @@ def test_level_unit_loads_only_what_its_p_reads():
     assert "READS_W = true" in value and "READS_C = true" in value
     assert "READS_W = false" in nonbot and "READS_C = true" in nonbot
     assert "NONBOT = true" in nonbot and "OP = OP_MAX" in nonbot
+
+
+def test_wide_round_unit_widens_its_pointer_arrays():
+    """A round of more outputs (levels + components) than a kernel's
+    default 16 pointers, such as the service's fused scalar round of 8
+    radius/drr requests (16 one-level components), defines a wider
+    ``Ptrs`` for its own unit; a narrower round's unit is unchanged, and a
+    round beyond the cap is refused."""
+    import pytest
+    from repro_torch.core import fusion, usecases
+    from repro_torch.core.guard import KernelBuildError
+    from repro_torch.core.iterate import comp_runtimes
+    from repro_torch.core.synthesis import synthesize_round
+    from repro_torch.kernels import edge_reduce, ops
+
+    def scalar_round(k):
+        prog = fusion.fuse_many(
+            [(i, (usecases.radius if i % 2 else usecases.drr)(2 * i, 2 * i + 1))
+             for i in range(k)])
+        (rnd,) = [r for _n, r in prog.rounds if r.leaves]
+        return ops.sweep_round(comp_runtimes(rnd, synthesize_round(rnd)),
+                               [leaf.plan for leaf in rnd.leaves])
+
+    narrow, wide = scalar_round(4), scalar_round(8)
+    assert (narrow.n_levels, len(narrow.comps_order), narrow.max_ptrs) == \
+        (8, 8, 16)
+    assert (wide.n_levels, len(wide.comps_order), wide.max_ptrs) == \
+        (16, 16, 32)
+    assert "GRAFS_MAX_PTRS" not in narrow.source()
+    assert wide.source().startswith("#define GRAFS_MAX_PTRS 32\n")
+    assert [f.name for f in build.included_files(wide.source())] == \
+        ["edge_sweep.cuh"]
+    wide.max_ptrs = edge_reduce._PTRS_CAP + 16   # the memoized round:
+    try:                                        # restored below
+        with pytest.raises(KernelBuildError, match="too wide"):
+            wide.source()
+    finally:
+        wide.max_ptrs = 32

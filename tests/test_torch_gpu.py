@@ -1303,3 +1303,197 @@ def test_incremental_pagerank_delta_on_card(cuda_device):
                                atol=1e-2 / g.n)
     pull = TE.run_direct(g2, dk, engine="pull")
     torch.testing.assert_close(cold.value, pull.value, rtol=1e-5, atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# The continuous-batching analytics service on the card
+# ---------------------------------------------------------------------------
+
+
+def _serving_spy(monkeypatch):
+    """Hold every query the service runs to the cuda engine with no
+    fallback, and count its entry-point calls."""
+    calls = {"batch": 0, "solo": 0}
+    real_batch, real_solo = TE.run_program_batch, TE.run_program
+
+    def batch(*a, **kw):
+        outs, state = real_batch(*a, **kw)
+        calls["batch"] += 1
+        for o in outs:
+            assert o.stats.engine_used == "cuda" and o.stats.fallbacks == ()
+        assert all(s.device.type == "cuda" for s in state)
+        return outs, state
+
+    def solo(*a, **kw):
+        r = real_solo(*a, **kw)
+        calls["solo"] += 1
+        if kw.get("engine") == "cuda":
+            assert r.stats.engine_used == "cuda" and r.stats.fallbacks == ()
+        return r
+
+    monkeypatch.setattr(TE, "run_program_batch", batch)
+    monkeypatch.setattr(TE, "run_program", solo)
+    return calls
+
+
+def _service_on_card(g, **kw):
+    from repro_torch.launch import service as TSV
+    svc = TSV.AnalyticsService(TSV.ServiceConfig(**kw))
+    svc.add_graph("g", g)
+    svc.register("BFS", TU.bfs)
+    svc.register("SSSP", TU.sssp)
+    return TSV, svc
+
+
+def _pull_answer(g, svc, req):
+    """The port's pull engine's answer to a served request: the vertex
+    array, or the scalar as float64."""
+    if req.lane == "batch":
+        prog = svc._kinds[req.kind][1]
+        v = TE.run_program(g, prog, engine="pull", source=req.source).value
+        return v.cpu().numpy()
+    v = TE.run_program(g, TF.fuse(req.spec), engine="pull").value
+    return np.float64(float(v))
+
+
+@pytest.mark.gpu
+def test_service_mix_trace_on_card(cuda_device, monkeypatch):
+    """A seeded MIX trace (BFS/SSSP from random sources, a quarter
+    radius/drr scalars) on rmat_graph(4096, 65536, seed=7) at the
+    reference service's defaults: every answer bitwise its solo cuda query
+    and the pull engine's; the lane state a card tensor on every chunk."""
+    g = TS.rmat_graph(4096, 65536, seed=7, device=cuda_device)
+    TSV, svc = _service_on_card(g)
+    calls = _serving_spy(monkeypatch)
+    cfg = svc.cfg
+    rate = 16.0 / (cfg.launch_overhead_s + cfg.chunk_iters * cfg.iter_cost_s)
+    m = svc.run_open_loop(TSV.open_loop_arrivals(
+        32, rate=rate, seed=0, make_request=TSV.standard_mix("g", g.n)))
+    assert m["completed"] == 32 and m["queries_per_launch"] > 1.0
+    assert m["scalar_rounds"] >= 1
+    assert calls["batch"] == m["batch_launches"]
+    assert TSV.verify_sequential(svc) == 32
+    for req in svc.completed:
+        want = _pull_answer(g, svc, req)
+        got = req.value if isinstance(want, np.ndarray) else \
+            np.float64(req.value)
+        assert np.asarray(got).tobytes() == np.asarray(want).tobytes(), \
+            req.rid
+    assert all(r.device.type == "cuda" for rows in svc._retired.values()
+               for r in rows)
+
+
+@pytest.mark.gpu
+def test_service_widest_scalar_round_on_card(cuda_device):
+    """One scalar round at ``max_scalar_fuse`` = 8 radius/drr requests (16
+    distinct sources, 16 components): each answer the pull engine's."""
+    g = TS.rmat_graph(4096, 65536, seed=7, device=cuda_device)
+    rng = np.random.default_rng(9)
+    ends = rng.choice(g.n, 16, replace=False)
+    reqs = [(i, (TU.radius if i % 2 else TU.drr)(int(ends[2 * i]),
+                                                 int(ends[2 * i + 1])))
+            for i in range(8)]
+    prog = TF.fuse_many(reqs)
+    assert len(prog.rounds[0][1].components) == 16
+    res = TE.run_program(g, prog, engine="cuda")
+    assert res.stats.engine_used == "cuda" and res.stats.fallbacks == ()
+    for key, spec in reqs:
+        want = TE.run_program(g, TF.fuse(spec), engine="pull").value
+        assert float(res.value[key]) == float(want), key
+
+
+@pytest.mark.gpu
+def test_service_mutate_under_traffic_on_card(cuda_device, monkeypatch):
+    """Traffic, repeats of served sources queued, then 0.5 % seeded inserts
+    through ``mutate_graph`` and a drain: the repeats join warm, and every
+    answer is bitwise a solo cuda query on the graph that served it."""
+    g = TS.rmat_graph(4096, 65536, seed=7, device=cuda_device)
+    TSV, svc = _service_on_card(g)
+    _serving_spy(monkeypatch)
+    for i, s in enumerate(range(10, 22)):
+        svc.submit("g", TSV.Request(rid=i, kind=("BFS", "SSSP")[i % 2],
+                                    source=s))
+    while svc.step():
+        pass
+    for i, s in enumerate(range(10, 22)):
+        svc.submit("g", TSV.Request(rid=100 + i,
+                                    kind=("BFS", "SSSP")[i % 2], source=s))
+    rng = np.random.default_rng(7)
+    k = int(g.num_edges * 0.005)
+    md = svc.mutate_graph("g", insert=(
+        rng.integers(0, g.n, k), rng.integers(0, g.n, k),
+        (0.1 + rng.random(k)).astype(np.float32)))
+    assert md.patched_layouts >= 1
+    while svc.step():
+        pass
+    m = svc.metrics()
+    assert m["completed"] == 24 and m["warm_joins"] >= 1
+    g2 = svc.graphs["g"]
+    for req in svc.completed:
+        served_on = g if req.rid < 100 else g2
+        prog = svc._kinds[req.kind][1]
+        want = TE.run_program(served_on, prog, engine="cuda",
+                              source=req.source).value
+        assert req.value.tobytes() == want.cpu().numpy().tobytes(), req.rid
+
+
+def _cached_bytes(g):
+    """Bytes of the distinct device storages in ``g``'s derived caches."""
+    seen = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+        elif isinstance(x, dict):
+            for y in x.values():
+                walk(y)
+
+    for cache in (TS._ELL_CACHE, TS._RES_CACHE, TS._WDEG_CACHE):
+        for ref, val in cache.values():
+            if ref() is g:
+                walk(val)
+    return sum(seen.values())
+
+
+@pytest.mark.gpu
+def test_service_eviction_frees_card_memory(cuda_device, monkeypatch):
+    """``max_graphs`` = 1: adding a second graph evicts the idle first,
+    and ``torch.cuda.memory_allocated()`` falls by at least its layouts'
+    bytes."""
+    g1 = TS.rmat_graph(4096, 65536, seed=7, device=cuda_device)
+    g2 = TS.rmat_graph(4096, 65536, seed=8, device=cuda_device)
+    TSV, svc = _service_on_card(g1, max_graphs=1)
+    for i in range(4):
+        svc.submit("g", TSV.Request(rid=i, kind="SSSP", source=i))
+    while svc.step():
+        pass
+    layouts = _cached_bytes(g1)
+    assert layouts > 0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    svc.add_graph("g2", g2)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    assert svc.graph_evictions == 1 and "g" not in svc.graphs
+    assert _cached_bytes(g1) == 0
+    assert before - after >= layouts
+
+
+@pytest.mark.gpu
+def test_service_analytics_smoke_on_card(cuda_device):
+    """``analytics --smoke`` on the card: every answer bitwise its solo
+    query, and the card's schedule the CPU's (all metrics but wall)."""
+    from repro_torch.launch import analytics as TA
+    card = TA.run_smoke(verbose=False)
+    TE.clear_program_caches()
+    cpu = TA.run_smoke(verbose=False, device="cpu")
+    assert card["verified_bitwise"] == 24
+    assert {k: v for k, v in card.items() if not k.startswith("wall")} == \
+        {k: v for k, v in cpu.items() if not k.startswith("wall")}

@@ -1,6 +1,9 @@
 """Import hygiene of the port: it imports without JAX, and no file of the
 package (nor chip_smoke.py, nor the port's quickstart) imports ``jax`` or
-the JAX package ``repro``."""
+the JAX package ``repro``.  Both tests walk every file under
+``src/repro_torch/``, ``launch/`` included: ``launch.analytics`` needs no
+guard at import time, since its ``--dryrun`` refuses without importing the
+reference's ``repro.launch.analytics_dryrun``."""
 import os
 import re
 import subprocess
