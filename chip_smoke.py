@@ -185,6 +185,27 @@ libraries at once, into ``build/repro_torch/``), and then
    virtual and wall metrics, launches per kernel, the libraries the trace
    built and their nvcc seconds, the chunks' host set-up, the lane-state
    and memo bytes and the peak device memory.
+10. runs the sharded engines: k = 4 vertex-cut shards of one graph on the
+   card (``partition.ShardMesh.on(card, 4)``), each holding its own
+   widened blocked-ELL pair and resolution and launching the pull, push and
+   resolve kernels on them, the partials folded across shards, through
+   ``run_program`` / ``run_direct`` with ``engine="cuda_sharded"``.  The
+   single-device cuda answers of a graph come first; then its caches are
+   dropped and the sharded layouts built (timed), one strategy at a time.
+   On the SCALE-16 graph, with both strategies (``contiguous``,
+   ``dst_hash``): BFS, SSSP, WSP, WP on auto direction, BFS pinned to pull
+   and to push, bitwise the single-device answer with equal iterations
+   and push iterations; PageRank and weighted PageRank with
+   ``model="push"`` allclose (rtol 1e-5), both iteration counts printed;
+   CC on the undirected closure bitwise; on the uniform graph
+   (contiguous) BFS bitwise and PageRank allclose; ``engine="distributed"``
+   BFS on the SCALE-16 graph bitwise the pull engine; and k = 5 shards of
+   ``line_graph(4)``, two of them empty.  Each kernel's launch count, set
+   to 0 before the query and read after, must be k times the
+   single-device query's (k per iteration of its direction).  Each line
+   gives the per-shard edge work, launches, the sharded set-up seconds,
+   the first and warm walls beside the single-device ones and the peak
+   device memory.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -194,6 +215,7 @@ numbers; the last line is the JSON result.  Details also go to
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -301,6 +323,7 @@ def main(argv) -> int:
                                             synthesize_round,
                                             weighted_pagerank_kernels)
     from repro_torch.graph import structure as TS
+    from repro_torch.graph.partition import ShardMesh
     from repro_torch.kernels import build
     from repro_torch.kernels import edge_reduce as ER
     from repro_torch.kernels import embedding_bag as EB
@@ -2412,6 +2435,189 @@ def main(argv) -> int:
         del svc
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------------
+    # Phase 10: the sharded engines, k = 4 vertex-cut shards of one graph
+    # on the card (``ShardMesh.on(dev, 4)``), each shard sweeping its own
+    # widened layouts with the same pull, push and resolve kernels, their
+    # partials folded across the shards.  Each query is held against its
+    # single-device cuda answer, computed first; then that graph's caches
+    # are dropped and the sharded layouts built, one strategy at a time
+    # (rmat16's take ≈ 43 GB, its closure's ≈ 67 GB).  The sweep kernels'
+    # launch counts are set to 0 just before each query and read just
+    # after (none counts for the main path).
+    # ------------------------------------------------------------------
+    phase10_rows = []
+
+    def p10_query(g, name):
+        """``make(**engine_kwargs)`` of one phase-10 query on ``g`` and
+        whether its round is idempotent (held bitwise)."""
+        n = g.n
+        if name == "PageRank":
+            return (lambda **kw: TE.run_direct(
+                g, pagerank_kernels(n, tol=1e-4 / n), **kw)), False
+        if name == "WPR push":
+            return (lambda **kw: TE.run_direct(
+                g, weighted_pagerank_kernels(n, tol=1e-4 / n),
+                model="push", **kw)), False
+        if name in ("BFS pull", "BFS push"):
+            model = name.split()[1]
+            return (lambda **kw: TE.run_program(g, progs["BFS"],
+                                                model=model, **kw)), True
+        return (lambda **kw: TE.run_program(g, progs[name], **kw)), True
+
+    def p10_single(g, names):
+        """The single-device cuda answers: name → (result, launches, first
+        and warm wall ms)."""
+        out = {}
+        for name in names:
+            make, _ = p10_query(g, name)
+            r, wall, launched = counted(lambda: make(engine="cuda"))
+            on_cuda(r, f"phase 10 single-device {name}")
+            out[name] = (r, launched, wall,
+                         counted(lambda: make(engine="cuda"))[1])
+        return out
+
+    def p10_case(graph, name, make, exact, single, mesh, strategy, setup):
+        """One sharded query against its single-device answer: bits (or
+        allclose rtol 1e-5 with both iteration counts), iterations and push
+        iterations, launches k × the single device's (each kernel once per
+        shard per iteration of its direction), on the card."""
+        k = mesh.device_count
+        kw = dict(engine="cuda_sharded", mesh=mesh, shard_strategy=strategy)
+        r, wall, launched = counted(lambda: make(**kw))
+        warm = counted(lambda: make(**kw))[1]
+        one, one_l, one_wall, one_warm = single
+        st = r.stats
+        if exact:
+            ok = torch.equal(bits(r.value), bits(one.value)) and \
+                (st.iterations, st.push_iters) == \
+                (one.stats.iterations, one.stats.push_iters)
+        else:
+            ok = bool(torch.isfinite(r.value).all()) and torch.allclose(
+                r.value, one.value, rtol=1e-5, atol=1e-8)
+        want_l = {"pull": k * st.pull_iters, "push": k * st.push_iters,
+                  "resolve": k * st.push_iters}
+        scaled = {kn: k * v for kn, v in one_l.items()}
+        row = {"graph": graph, "query": name, "strategy": strategy,
+               "shards": k, "match": ("bitwise" if exact else "allclose")
+               if ok else "MISMATCH",
+               "iterations": st.iterations, "push_iters": st.push_iters,
+               "single_iterations": one.stats.iterations,
+               "single_push_iters": one.stats.push_iters,
+               "shard_work": list(st.shard_work), "edge_work": st.edge_work,
+               "single_edge_work": one.stats.edge_work,
+               "resolve_work": st.resolve_work,
+               "cross_combines": st.cross_combines,
+               "launches": launched, "single_launches_x_k": scaled,
+               **setup, "wall_ms": wall, "warm_wall_ms": warm,
+               "single_wall_ms": one_wall, "single_warm_wall_ms": one_warm,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log("phase 10 " + json.dumps(row))
+        phase10_rows.append(row)
+        if not ok:
+            raise RuntimeError(f"phase 10 {graph} {name} ({strategy}): the "
+                               "sharded answer differs from the "
+                               "single-device one")
+        if (st.engine_used != "cuda_sharded" or st.fallbacks != ()
+                or st.shards != k or r.value.device.type != "cuda"):
+            raise RuntimeError(f"phase 10 {graph} {name}: ran on "
+                               f"{st.engine_used!r} ({st.fallbacks}) with "
+                               f"{st.shards} shards on {r.value.device}")
+        if launched != want_l or (exact and launched != scaled) or \
+                not sum(launched.values()):
+            raise RuntimeError(f"phase 10 {graph} {name}: launches "
+                               f"{launched}, expected {want_l} (single "
+                               f"device × {k}: {scaled})")
+
+    def p10_drop(g):
+        """Drop ``g``'s cached layouts (and whatever a collected cycle
+        held) and return the device memory still allocated, GB."""
+        TE.clear_graph_caches(g)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated() / 1e9
+
+    def p10_setup(g, k, strategy, mesh):
+        """The sharded set-up of one strategy, timed in parts (validation
+        first, which dropping the graph's caches dropped too), its layout
+        bytes and the peak device memory while it built."""
+        parts, held = {}, []
+        for what, fn in (
+                ("validate", lambda: TS.validate_graph(g)),
+                ("ell_in", lambda: TS.sharded_ell_cached(
+                    g, k, strategy, direction="in", devices=mesh.devices)),
+                ("ell_out", lambda: TS.sharded_ell_cached(
+                    g, k, strategy, direction="out", devices=mesh.devices)),
+                ("resolution", lambda: TS.sharded_push_resolution_cached(
+                    g, k, strategy, devices=mesh.devices))):
+            t0 = time.perf_counter()
+            held.append(fn())
+            torch.cuda.synchronize()
+            parts[what] = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for lay in held[1:]
+                     for shard in lay.shards
+                     for t in (getattr(shard, f.name)
+                               for f in dataclasses.fields(shard))
+                     if isinstance(t, torch.Tensor))
+        return {"setup_s": parts, "layouts_gb": nbytes / 1e9,
+                "setup_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    def phase10_graph(graph, g, names, strategies, k=4):
+        """Single-device answers of ``names`` first; then per strategy the
+        sharded layouts (timed set-up, on a freed card) and the sharded
+        queries; the graph's caches dropped after each."""
+        single = p10_single(g, names)
+        mesh = ShardMesh.on(dev, k)
+        for strategy in strategies:
+            resident = p10_drop(g)
+            reset_peak()
+            setup = dict(p10_setup(g, k, strategy, mesh),
+                         resident_gb=resident)
+            for name in names:
+                make, exact = p10_query(g, name)
+                p10_case(graph, name, make, exact, single[name], mesh,
+                         strategy, setup)
+        p10_drop(g)
+
+    def phase10_rmat16(g):
+        phase10_graph("rmat16", g, ("BFS", "SSSP", "WSP", "WP", "BFS pull",
+                                    "BFS push", "PageRank", "WPR push"),
+                      ("contiguous", "dst_hash"))
+        # the distributed engine (segment ops per shard) against pull
+        mesh = ShardMesh.on(dev, 4)
+        ref, ref_wall = timed(lambda: TE.run_program(g, progs["BFS"],
+                                                     engine="pull"))
+        r, wall = timed(lambda: TE.run_program(g, progs["BFS"],
+                                               engine="distributed",
+                                               mesh=mesh))
+        ok = torch.equal(r.value, ref.value) and \
+            r.stats.iterations == ref.stats.iterations
+        row = {"graph": "rmat16", "query": "BFS", "engine": "distributed",
+               "shards": 4, "match": "bitwise" if ok else "MISMATCH",
+               "iterations": r.stats.iterations,
+               "pull_iterations": ref.stats.iterations,
+               "shard_work": list(r.stats.shard_work),
+               "edge_work": r.stats.edge_work,
+               "pull_edge_work": ref.stats.edge_work, "wall_ms": wall,
+               "pull_wall_ms": ref_wall,
+               "on_card": r.value.device.type == "cuda"}
+        log("phase 10 " + json.dumps(row))
+        phase10_rows.append(row)
+        if not ok or not row["on_card"]:
+            raise RuntimeError("phase 10: distributed BFS rmat16 differs "
+                               "from the pull engine")
+        # k > |E|: two of five shards hold no edge
+        gl4 = TS.line_graph(4, device=dev)
+        for name in ("BFS", "BFS pull", "BFS push"):
+            make, exact = p10_query(gl4, name)
+            p10_case("line_graph(4)", name, make, exact,
+                     p10_single(gl4, (name,))[name], ShardMesh.on(dev, 5),
+                     "contiguous", {})
+        if sorted(phase10_rows[-1]["shard_work"])[:2] != [0, 0]:
+            raise RuntimeError("phase 10: line_graph(4) at k = 5 has no "
+                               "empty shard")
+        del gl4
+
     setup("rmat16", g16)
     ER.reset_launches()
     for name in ("BFS", "SSSP", "WSP"):
@@ -2459,6 +2665,9 @@ def main(argv) -> int:
     phase9_rmxs()
     phase9_rmat16(g16)
     phase9_s = time.perf_counter() - t9
+    t10 = time.perf_counter()
+    phase10_rmat16(g16)
+    phase10_s = time.perf_counter() - t10
     gu16 = TS.undirected(g16)
     TE.clear_graph_caches(g16)
     torch.cuda.empty_cache()
@@ -2474,6 +2683,10 @@ def main(argv) -> int:
     t8 = time.perf_counter()
     phase8_single("CC undirected(rmat16)", gu16, "CC", both=True)
     phase8_s += time.perf_counter() - t8
+    t10 = time.perf_counter()
+    phase10_graph("undirected rmat16", gu16, ("CC",),
+                  ("contiguous", "dst_hash"))
+    phase10_s += time.perf_counter() - t10
     del gu16, g16
     TE.clear_program_caches()
     torch.cuda.empty_cache()
@@ -2549,6 +2762,12 @@ def main(argv) -> int:
     log(f"phase 8: {phase8_s:.1f} s")
     record["phase8"] = phase8_rows
     record["phase8_s"] = phase8_s
+    t10 = time.perf_counter()
+    phase10_graph("uniform21", gu, ("BFS", "PageRank"), ("contiguous",))
+    phase10_s += time.perf_counter() - t10
+    log(f"phase 10: {phase10_s:.1f} s")
+    record["phase10"] = phase10_rows
+    record["phase10_s"] = phase10_s
     level_cases("uniform21", gu, ("int n+1",))
     softmax_case("uniform21 in-layout", gu)
     del gu
@@ -2738,6 +2957,10 @@ def main(argv) -> int:
                                           for r in phase8_rows)
         # and in phase 9's serving traces
         row["serving_launches"] = serving_launches[kname]
+        # and in phase 10's sharded queries (every shard's launches)
+        row["sharded_launches"] = sum(r["launches"][kname]
+                                      for r in phase10_rows
+                                      if "launches" in r)
     kernels[0]["batched"].update(
         given_ms=batch_ref["pull_given"]["ms"],
         given_solo_ms=batch_ref["pull_given"]["solo_ms"],

@@ -11,6 +11,12 @@ The port's counterpart of ``repro.core.engine``: runs a ``FusedProgram``
                 kernel followed by the sorted-resolution kernel
                 (``kernels.ops.iterate_cuda``; ``model`` forces "pull" /
                 "push", the default picks per iteration)
+  cuda_sharded  the same sweeps on each of the k vertex-cut shards of a
+                ``partition.ShardMesh``, the partials folded across shards
+                and the direction switch kept global
+                (``kernels.ops.iterate_cuda_sharded``; needs ``mesh``)
+  distributed   the vertex cut over plain segment ops per shard
+                (``core.iterate.iterate_distributed``; needs ``mesh``)
 
 ``run_program_batch`` and ``run_direct(sources=…)`` serve B queries of
 one program or kernel set together: on ``cuda`` one batched fixpoint with
@@ -20,8 +26,8 @@ one launch per sweep per iteration for the whole batch
 hooks of a scheduler that carries a batch's state between chunks.
 
 ``fallback=True`` degrades an infrastructure failure down
-``guard.FALLBACK_CHAIN`` (cuda → adaptive) after a bounded same-engine
-retry (``ft_config`` sets the budget), recording each step in
+``guard.FALLBACK_CHAIN`` (cuda_sharded → cuda → adaptive) after a bounded
+same-engine retry (``ft_config`` sets the budget), recording each step in
 ``ExecStats.fallbacks``.  A kernel's build or launch fault, a CUDA runtime
 error and every guard verdict propagate instead (``guard.recoverable``).
 
@@ -51,18 +57,10 @@ from repro_torch.core.fusion import FusedProgram, FusedRound, plan_output
 from repro_torch.core.kernel_lang import eval_expr
 from repro_torch.core.plan import ExecutionPlan, plan_execution
 from repro_torch.core.synthesis import DirectKernels, synthesize_round
+from repro_torch.graph.partition import check_mesh
 from repro_torch.graph.structure import resolve_device
 
 _BOT_CUTOFF = 1e8
-
-# Keyword arguments of the reference entry points that belong to later
-# slices of the port; passing one with a non-default value raises.
-_LATER = {
-    "mesh": "the sharded engines (ROADMAP Queue 1, item 11)",
-    "axes": "the sharded engines (ROADMAP Queue 1, item 11)",
-    "shard_strategy": "the sharded engines (ROADMAP Queue 1, item 11)",
-}
-_LATER_DEFAULTS = {"axes": ("data",)}
 
 # The same-engine retry budget of the fallback chain when no ``ft_config``
 # is given: the reference's constants, kept for parity, so they differ from
@@ -71,24 +69,16 @@ _FALLBACK_RETRIES = 1
 _FALLBACK_BACKOFF_S = 0.01
 
 
-def _reject_later(kwargs: dict) -> None:
-    for name, val in kwargs.items():
-        if name not in _LATER:
-            raise TypeError(f"unexpected keyword argument {name!r}")
-        if val is not None and val != _LATER_DEFAULTS.get(name):
-            raise NotImplementedError(
-                f"{name}= is not ported yet: it comes with {_LATER[name]}")
-
-
 def clear_program_caches():
     """Drop every layer of the program cache: synthesized round kernels,
-    layouts, mutation slot maps, plans and the per-round sweep shapes; and
-    zero ``mutate.MUTATION_STATS``."""
+    layouts (sharded ones included), mutation slot maps, plans and the
+    per-round sweep shapes; and zero ``mutate.MUTATION_STATS``."""
     from repro_torch.core import synthesis
     from repro_torch.graph import mutate, structure
     from repro_torch.kernels import ops as kops
     synthesis._ROUND_CACHE.clear()
-    for cache in (structure._ELL_CACHE, structure._RES_CACHE,
+    for cache in (structure._ELL_CACHE, structure._SHARDED_ELL_CACHE,
+                  structure._RES_CACHE, structure._SHARDED_RES_CACHE,
                   structure._WDEG_CACHE, structure._VALID_CACHE,
                   structure._STATS_CACHE, structure._SLOT_CACHE):
         cache.clear()
@@ -110,7 +100,9 @@ def program_cache_stats() -> dict:
     from repro_torch.kernels import ops as kops
     return {"synth_rounds": len(synthesis._ROUND_CACHE),
             "ell_layouts": len(structure._ELL_CACHE),
+            "sharded_layouts": len(structure._SHARDED_ELL_CACHE),
             "push_resolutions": len(structure._RES_CACHE),
+            "sharded_resolutions": len(structure._SHARDED_RES_CACHE),
             "graph_stats": len(structure._STATS_CACHE),
             "slot_maps": len(structure._SLOT_CACHE),
             "plans": _plan.plan_cache_size(),
@@ -129,6 +121,13 @@ class ExecStats:
     resolve_work: int = 0           # Σ resolution-tile nnz (sorted), full
                                     # rectangle (scatter), 0 on pull
     gather_work: int = 0            # candidate slots the resolve kernel read
+    shards: int = 0                 # shard count of the sharded engines
+    shard_launches: int = 0         # sweeps per shard per iteration,
+                                    # summed over rounds (cuda_sharded)
+    cross_combines: int = 0         # cross-shard state folds run
+                                    # (cuda_sharded)
+    shard_work: tuple = ()          # per-shard edge work ([k]; its sum is
+                                    # the sharded rounds' edge work)
     engine_used: str = ""
     converged: bool = True
     fallbacks: tuple = ()
@@ -178,7 +177,9 @@ def _round_runtime(round_, synth):
     return comps, plans
 
 
-def _prepare(g, device):
+def _prepare(g, device, mesh=None):
+    if mesh is not None:
+        check_mesh(mesh)
     dev = resolve_device(device)
     if g.device != dev:
         raise ValueError(f"the graph lives on {g.device}, the query asked "
@@ -252,15 +253,30 @@ def _check_outcome(res, max_iter_eff, on_nonconverge):
 
 
 def _run(engine: str, plan: ExecutionPlan, g, comps, plans, max_iter, tol,
-         sources, warm: dict):
+         sources, warm: dict, mesh=None, direct: bool = False):
     """One iteration round on ``engine``, which differs from ``plan.engine``
     only while walking the fallback chain; the engine-dependent plan fields
     then re-resolve (``degrade_plan``).  ``warm`` holds the warm-start and
     checkpoint arguments, which only the cuda engine reads: as in the
     reference, a query degraded to another engine runs cold.  A delta seed
     over a non-idempotent round warm-starts from the rescaled state
-    (``_rescale_warm_state``)."""
+    (``_rescale_warm_state``).  The sharded engines need ``mesh``; on
+    ``distributed`` a direct kernel set (``direct``) runs pull−, as the
+    reference's ``run_direct`` runs it."""
     plan = _plan.degrade_plan(plan, engine)
+    if engine in _plan.SHARDED_ENGINES and mesh is None:
+        raise AssertionError(f"{engine} engine needs a mesh")
+    if engine == "distributed":
+        model = "pull-" if direct else (plan.model or "pull+")
+        return iterate.iterate_distributed(g, comps, plans, mesh,
+                                           axes=plan.axes, model=model,
+                                           max_iter=max_iter, tol=tol,
+                                           sources=sources)
+    if engine == "cuda_sharded":
+        from repro_torch.kernels import ops as kops
+        return kops.iterate_cuda_sharded(g, comps, plans, mesh,
+                                         axes=plan.axes, max_iter=max_iter,
+                                         tol=tol, sources=sources, plan=plan)
     if engine in ("pull", "push"):
         idempotent = all(iterate.plan_idempotent(p) for p in plans)
         model = plan.model or (engine + ("+" if idempotent else "-"))
@@ -410,14 +426,26 @@ def _accumulate(stats: ExecStats, res, synth_ms: float) -> None:
     stats.pull_iters += getattr(res, "pull_iters", 0)
     stats.resolve_work += getattr(res, "resolve_work", 0)
     stats.gather_work += getattr(res, "gather_work", 0)
+    stats.shards = max(stats.shards, getattr(res, "shards", 0))
+    stats.shard_launches += getattr(res, "shard_launches", 0)
+    stats.cross_combines += getattr(res, "cross_combines", 0)
+    sw = tuple(getattr(res, "shard_work", ()))
+    if sw:
+        if len(stats.shard_work) == len(sw):
+            stats.shard_work = tuple(a + b
+                                     for a, b in zip(stats.shard_work, sw))
+        elif not stats.shard_work:
+            stats.shard_work = sw
+        else:                       # the shard count changed between rounds
+            stats.shard_work = stats.shard_work + sw
 
 
 def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
-                model: Optional[str] = None,
+                model: Optional[str] = None, mesh=None, axes=("data",),
                 max_iter: Optional[int] = None, tol: float = 0.0,
                 source: Optional[int] = None,
                 push_resolution: Optional[str] = None,
-                switch_k="auto",
+                switch_k="auto", shard_strategy: Optional[str] = None,
                 validate: bool = True,
                 on_nonconverge: str = "raise",
                 fallback: bool = False, ft_config=None,
@@ -428,22 +456,30 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
                 adaptive: bool = False,
                 plan: Optional[ExecutionPlan] = None,
                 explain: bool = False,
-                device=None, **later):
+                device=None):
     """Execute a fused program.  ``source`` re-sources every sourced
     component to one query source.
 
     Every knob kwarg is a hint to the query planner (``core.plan``):
-    ``engine`` (None → "pull", "auto" → "cuda"), ``model`` (cuda engine:
+    ``engine`` (None → "pull", "auto" → "cuda", or "cuda_sharded" with a
+    ``mesh`` of more than one device), ``model`` (cuda engines:
     "pull"/"push" pins the sweep direction), ``switch_k``,
-    ``push_resolution``; the resolved plan lands in ``stats.plan`` and
-    ``explain=True`` returns the ``PlanExplanation`` without executing.
+    ``push_resolution``, ``shard_strategy`` ("contiguous" | "dst_hash");
+    the resolved plan lands in ``stats.plan`` and ``explain=True`` returns
+    the ``PlanExplanation`` without executing.
+
+    Sharded engines (``engine="cuda_sharded"`` or ``"distributed"``) run
+    the k vertex-cut shards of ``mesh``, a ``partition.ShardMesh`` (shard
+    j on ``mesh.devices[j]``, e.g. ``ShardMesh.on("cuda", 4)``; any other
+    mesh raises ``TypeError``); ``stats`` then carries ``shards``,
+    ``shard_work``, ``shard_launches`` and ``cross_combines``.
 
     Guarded execution: ``validate`` checks the graph's structural contract,
     the source's range and the termination preconditions before any kernel
     launches; ``on_nonconverge`` ("raise"/"warn"/"ignore") governs a round
     that exhausts ``max_iter`` or trips the divergence sentinel;
     ``fallback=True`` degrades an infrastructure failure down the fallback
-    chain (cuda → adaptive) with bounded retry (``ft_config`` tunes the
+    chain (cuda_sharded → cuda → adaptive) with bounded retry (``ft_config`` tunes the
     budget), recording each event in the stats.
 
     Chunked fixpoints (cuda engine, ``kernels.ops.iterate_cuda``):
@@ -466,13 +502,13 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
     Raw vertex ids are taken as given.  Idempotent rounds converge bitwise
     to the cold query on the mutated graph; non-idempotent (PageRank-style)
     rounds warm-start from the rescaled state and need ``tol > 0``."""
-    _reject_later(later)
-    _prepare(g, device)
+    _prepare(g, device, mesh)
     mutation, delta_ids = _mutation_hints(delta)
     if plan is None or explain:
         planned = plan_execution(
-            g, prog, engine=engine, model=model, switch_k=switch_k,
-            push_resolution=push_resolution, validate=validate,
+            g, prog, engine=engine, model=model, mesh=mesh, axes=axes,
+            switch_k=switch_k, push_resolution=push_resolution,
+            shard_strategy=shard_strategy, validate=validate,
             on_nonconverge=on_nonconverge, fallback=fallback,
             divergence_sentinel=divergence_sentinel, adaptive=adaptive,
             mutation=mutation,
@@ -513,7 +549,7 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
             src_over = _source_overrides(round_, source)
             res, eng_used, events, retries = _dispatch_guarded(
                 lambda eng: _run(eng, plan, g, comps, plans, max_iter, tol,
-                                 src_over, warm),
+                                 src_over, warm, mesh),
                 plan.engine, plan.fallback, ft_config)
             stats.engine_used = eng_used
             stats.fallbacks += tuple(ev.as_tuple() for ev in events)
@@ -538,10 +574,11 @@ def run_program(g, prog: FusedProgram, engine: Optional[str] = None,
 
 def run_program_batch(g, prog: FusedProgram, sources: Sequence,
                       engine: Optional[str] = None,
-                      model: Optional[str] = None,
+                      model: Optional[str] = None, mesh=None,
+                      axes=("data",),
                       max_iter: Optional[int] = None, tol: float = 0.0,
                       push_resolution: Optional[str] = None,
-                      switch_k="auto",
+                      switch_k="auto", shard_strategy: Optional[str] = None,
                       validate: bool = True,
                       on_nonconverge: str = "raise",
                       fallback: bool = False, ft_config=None,
@@ -549,7 +586,7 @@ def run_program_batch(g, prog: FusedProgram, sources: Sequence,
                       adaptive: bool = False,
                       plan: Optional[ExecutionPlan] = None,
                       explain: bool = False,
-                      device=None, **later):
+                      device=None):
     """Serve B single-source queries of one program together.
 
     ``sources`` is a [B] sequence of query sources; every sourced component
@@ -561,7 +598,8 @@ def run_program_batch(g, prog: FusedProgram, sources: Sequence,
     ``run_program(..., source=s)`` query's with its counters.  Other
     engines run the B queries one after the other (the plan's
     ``batch_lane="sequential"``, recorded as a ``guard.batch_degradation``
-    event on every query's stats).
+    event on every query's stats; the sharded engines take ``mesh``,
+    ``axes`` and ``shard_strategy`` as ``run_program`` does).
 
     Returns a list of B ``ExecResult``s, each with its own stats
     (``synth_ms`` is the round's shared synthesis cost, on each).
@@ -581,8 +619,7 @@ def run_program_batch(g, prog: FusedProgram, sources: Sequence,
     per-component [B, n] tensors on the graph's device.  Bound
     ``max_iter`` to the chunk and read each query's ``stats.converged``
     (under ``on_nonconverge="ignore"``) to retire or carry a slot."""
-    _reject_later(later)
-    _prepare(g, device)
+    _prepare(g, device, mesh)
     src_arr = np.asarray(sources)
     if src_arr.ndim != 1:
         raise ValueError(
@@ -591,8 +628,9 @@ def run_program_batch(g, prog: FusedProgram, sources: Sequence,
             "batching is the kernels-layer iterate_cuda_batch API")
     if plan is None or explain:
         planned = plan_execution(
-            g, prog, engine=engine, model=model, switch_k=switch_k,
-            push_resolution=push_resolution, batch=len(src_arr),
+            g, prog, engine=engine, model=model, mesh=mesh, axes=axes,
+            switch_k=switch_k, push_resolution=push_resolution,
+            shard_strategy=shard_strategy, batch=len(src_arr),
             validate=validate, on_nonconverge=on_nonconverge,
             fallback=fallback, adaptive=adaptive, default_engine="cuda",
             explain=explain)
@@ -615,9 +653,9 @@ def run_program_batch(g, prog: FusedProgram, sources: Sequence,
     n_q = len(src_list)
     if plan.engine != "cuda":
         return _each_solo(
-            lambda s: run_program(g, prog, max_iter=max_iter, tol=tol,
-                                  source=s, ft_config=ft_config, plan=plan,
-                                  device=device),
+            lambda s: run_program(g, prog, mesh=mesh, max_iter=max_iter,
+                                  tol=tol, source=s, ft_config=ft_config,
+                                  plan=plan, device=device),
             src_list, guard.batch_degradation(plan.engine, n_q))
     from repro_torch.kernels import ops as kops
     stats = [ExecStats(engine_used="cuda", plan=plan) for _ in range(n_q)]
@@ -740,11 +778,11 @@ def batch_init_state(g, prog: FusedProgram, sources: Sequence) -> tuple:
 
 
 def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
-               model: Optional[str] = None,
+               model: Optional[str] = None, mesh=None, axes=("data",),
                source: Optional[int] = None,
                sources: Optional[Sequence] = None,
                push_resolution: Optional[str] = None,
-               switch_k="auto",
+               switch_k="auto", shard_strategy: Optional[str] = None,
                validate: bool = True,
                on_nonconverge: str = "raise",
                fallback: bool = False, ft_config=None,
@@ -755,7 +793,7 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
                adaptive: bool = False,
                plan: Optional[ExecutionPlan] = None,
                explain: bool = False,
-               device=None, **later):
+               device=None):
     """Execute a direct kernel set (PageRank-style, paper Fig. 4b) on one
     engine.  ``model`` pins the cuda engine's sweep direction; by default
     idempotent kernels switch per iteration and the rest run the pull−
@@ -771,18 +809,20 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
     [B] batch of queries and returns a list of per-query ``ExecResult``s:
     one batched fixpoint on the cuda engine (``ops.iterate_cuda_batch``,
     each result bitwise its solo query's), B solo queries elsewhere with
-    the ``guard.batch_degradation`` event.  Both need a source-generic
+    the ``guard.batch_degradation`` event.  ``mesh``, ``axes`` and
+    ``shard_strategy`` act as in ``run_program``; ``distributed`` runs the
+    kernel set pull−, as the reference does.  Both need a source-generic
     kernel set (``dk.source`` not None); a batch is neither chunked nor
     warm-started."""
     from repro_torch.core.fusion import Prim
 
-    _reject_later(later)
-    _prepare(g, device)
+    _prepare(g, device, mesh)
     mutation, delta_ids = _mutation_hints(delta)
     if plan is None or explain:
         planned = plan_execution(
-            g, dk, engine=engine, model=model, switch_k=switch_k,
-            push_resolution=push_resolution,
+            g, dk, engine=engine, model=model, mesh=mesh, axes=axes,
+            switch_k=switch_k, push_resolution=push_resolution,
+            shard_strategy=shard_strategy,
             batch=None if sources is None else len(sources),
             validate=validate, on_nonconverge=on_nonconverge,
             fallback=fallback, divergence_sentinel=divergence_sentinel,
@@ -825,13 +865,13 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
     _check_preconditions(chk, [comp], plans)
     if sources is not None:
         return _direct_batch(g, dk, comp, plans, sources, plan, ft_config,
-                             max_iter_eff, device)
+                             max_iter_eff, device, mesh)
     src_over = None if source is None else {0: int(source)}
     warm = dict(checkpoint_every=checkpoint_every, ckpt_dir=ckpt_dir,
                 resume=resume, init_state=init_state, delta=delta_ids)
     res, eng_used, events, retries = _dispatch_guarded(
         lambda eng: _run(eng, plan, g, [comp], plans, dk.max_iter, dk.tol,
-                         src_over, warm),
+                         src_over, warm, mesh, direct=True),
         plan.engine, plan.fallback, ft_config)
     stats = ExecStats(engine_used=eng_used,
                       fallbacks=tuple(ev.as_tuple() for ev in events),
@@ -843,14 +883,15 @@ def run_direct(g, dk: DirectKernels, engine: Optional[str] = None,
 
 
 def _direct_batch(g, dk, comp, plans, sources, plan, ft_config, max_iter_eff,
-                  device) -> list:
+                  device, mesh) -> list:
     """``run_direct(sources=…)`` past its checks: one batched fixpoint on
     cuda, B solo queries (with the ``batch_degradation`` event) elsewhere."""
     src_list = [int(s) for s in sources]
     if plan.engine != "cuda":
         return _each_solo(
-            lambda s: run_direct(g, dk, source=s, ft_config=ft_config,
-                                 plan=plan, device=device),
+            lambda s: run_direct(g, dk, mesh=mesh, source=s,
+                                 ft_config=ft_config, plan=plan,
+                                 device=device),
             src_list, guard.batch_degradation(plan.engine, len(src_list)))
     from repro_torch.kernels import ops as kops
     try:

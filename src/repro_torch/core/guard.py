@@ -12,10 +12,11 @@ fails to build (``KernelBuildError``) or to launch (``KernelLaunchError``),
 and any CUDA runtime error, is never recoverable.  A fallback would finish
 the query on the torch segment ops and hide the kernel's fault; a sticky
 CUDA error has killed the device's context besides, so nothing on that
-device would survive it.  The kernel engine (``kernels.ops.iterate_cuda``)
-raises every other failure of its own, out-of-memory errors aside, as a
-``KernelLaunchError``: only an out-of-memory error, or a failure outside
-the kernel layer, takes the chain.
+device would survive it.  The kernel engines (``kernels.ops.iterate_cuda``
+and ``iterate_cuda_sharded``) raise every other failure of their own,
+out-of-memory errors aside, as a ``KernelLaunchError``: only an
+out-of-memory error, or a failure outside the kernel layer, takes the
+chain.
 """
 from __future__ import annotations
 
@@ -104,10 +105,12 @@ def batch_degradation(engine: str, batch_size: int) -> FallbackEvent:
         "batch_lane='sequential'")
 
 
-# Degradation order: the CUDA kernel engine falls back to the adaptive
-# reference engine (plain segment ops — the semantics every kernel engine
-# is tested against).  ``adaptive`` is the floor: its failures propagate.
+# Degradation order: the sharded kernel engine falls back to the
+# single-device one, which falls back to the adaptive reference engine
+# (plain segment ops — the semantics every kernel engine is tested
+# against).  ``adaptive`` is the floor: its failures propagate.
 FALLBACK_CHAIN = {
+    "cuda_sharded": "cuda",
     "cuda": "adaptive",
 }
 

@@ -11,9 +11,11 @@ synchronous models
 
 over *reduction plans* (``Prim`` / ``Lex`` trees), and on the same plan
 algebra the ``adaptive`` engine (Gemini: per iteration, pull when the
-frontier is dense, push when it is sparse) and the ``dense`` engine
+frontier is dense, push when it is sparse), the ``dense`` engine
 (GridGraph analogue: reductions over ``[n, n]`` edge matrices, small graphs
-only).  These engines use only torch segment/scatter and dense reductions
+only) and the ``distributed`` engine (a vertex cut: per-shard segment
+reduces folded across the shards of a ``ShardMesh``, ``cross_shard``).
+These engines use only torch segment/scatter and dense reductions
 (``graph.segment``), none of the CUDA sweeps, so they are the port's own
 oracle for the ``cuda`` engine on the card and the floor of its fallback
 chain.  Each fixpoint is a host loop that reads the frontier once per
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch.core.fusion import FusedRound, Lex, Prim
 from repro_torch.graph import segment
+from repro_torch.graph.partition import mesh_shards, partition_edges
 from repro_torch.graph.structure import Graph
 from repro_torch.graph.structure import w_out_deg as structure_w_out_deg
 
@@ -218,6 +221,25 @@ def _residual(comps, new, old):
         if d.shape[-1]:
             r = torch.maximum(r, d.amax(dim=-1))
     return r
+
+
+def check_shard_replication(counts, what: str, engine: str) -> None:
+    """Replication contract of the sharded engines: every shard runs the
+    same fixpoint (iteration count, direction sequence), so every shard
+    must report the identical value.  On divergence, report the per-shard
+    values and the offending shard ids (the minority) instead of a bare
+    mismatch."""
+    counts = np.asarray(counts)
+    if counts.size == 0 or (counts == counts.flat[0]).all():
+        return
+    vals, freq = np.unique(counts, return_counts=True)
+    majority = vals[int(freq.argmax())]
+    offenders = np.flatnonzero(counts != majority)
+    raise RuntimeError(
+        f"{engine} shards diverged on {what}: per-shard {what} = "
+        f"{counts.tolist()}; majority value {majority} held by "
+        f"{int(freq.max())}/{counts.size} shards, offending shard ids "
+        f"{offenders.tolist()} — replicated-state contract broken")
 
 
 def _init_arity(init_fn) -> int:
@@ -568,3 +590,124 @@ def iterate_dense(g: Graph, comps, plans, max_iter: Optional[int] = None,
         state = new
         k += 1
     return _finish(comps, state, active, k, work, div, resid)
+
+
+# ---------------------------------------------------------------------------
+# distributed engine: PowerGraph-style vertex-cut over a ShardMesh.
+# ---------------------------------------------------------------------------
+
+def _cross_plan(plan, red: dict, mesh, comps_by_idx) -> dict:
+    """Cross-shard lexicographic fold of one plan: ``red[c]`` lists the k
+    per-shard partials of component c; the primary folds across shards,
+    each shard's secondaries are masked to the identity where its primary
+    is not the global best, and the secondary plan folds those.  Returns
+    {c: the folded value on each shard's device}."""
+    best = segment.psum_like(plan.op, red[plan.comp], mesh)
+    out = {plan.comp: best}
+    if isinstance(plan, Lex):
+        masked = {c: [torch.where(r == b, x, _ident(comps_by_idx[c]))
+                      for r, b, x in zip(red[plan.comp], best, red[c])]
+                  for c in _plan_comps(plan.secondary)}
+        out.update(_cross_plan(plan.secondary, masked, mesh, comps_by_idx))
+    return out
+
+
+def cross_shard(plans, red: dict, mesh, comps_by_idx) -> dict:
+    """The sharded engines' combine of per-shard partial reductions (``red``:
+    {component: [k partials]}) over every plan, one ``segment.psum_like``
+    per lex level: {component: [the folded value on each shard's
+    device]}."""
+    out = dict(red)
+    for p in plans:
+        out.update(_cross_plan(p, red, mesh, comps_by_idx))
+    return out
+
+
+def iterate_distributed(g: Graph, comps, plans, mesh, axes=("data",),
+                        model: str = "pull+",
+                        max_iter: Optional[int] = None, tol: float = 0.0,
+                        sources: Optional[dict] = None) -> IterationResult:
+    """Edge-partitioned fused reduction over the shards of ``mesh`` (a
+    ``partition.ShardMesh``): the port of the reference's vertex cut over
+    plain segment ops.  Shard j holds the j-th ``partition_edges`` block
+    (contiguous) on ``mesh.devices[j]`` and each iteration does its masked
+    segment reduce (Gather + Apply); the partials fold across shards in
+    shard order (``cross_shard``, Scatter), then ``plan_merge`` (pull+) or
+    the pull− epilogue with the has-pred folded by ``or``, on
+    ``mesh.devices[0]``, where the state lives.  The result carries
+    ``shards`` and ``shard_work`` (each shard's edge work, int; their sum
+    is ``edge_work``)."""
+    k_shards = mesh_shards(mesh, axes)
+    devs = mesh.devices
+    n = g.n
+    part = partition_edges(g, k_shards)
+    max_iter = max_iter if max_iter is not None else 2 * n + 4
+    if model == "pull+" and not all(plan_idempotent(p) for p in plans):
+        model = "pull-"
+    comps_by_idx = {cr.idx: cr for cr in comps}
+    wdeg = structure_w_out_deg(g)
+    shards = []
+    for j, d in enumerate(devs):
+        src, dst = part.src[j].to(d), part.dst[j].to(d)
+        env = _edge_env(src, dst, part.weight[j].to(d),
+                        part.capacity[j].to(d), g.out_deg.to(d), n,
+                        wdeg=wdeg.to(d))
+        shards.append((d, src, dst, part.mask[j].to(d), env))
+
+    state = _init_state(comps, n, sources, device=devs[0])
+    active = torch.ones(n, dtype=torch.bool, device=devs[0])
+    k = 0
+    work = [torch.zeros((), dtype=torch.int64, device=d) for d in devs]
+    reduces = [0] * k_shards
+    div = torch.zeros((), dtype=torch.bool, device=devs[0])
+    resid = torch.zeros((), dtype=torch.float32, device=devs[0])
+    while k < max_iter and bool(active.any()):
+        state_d = {cr.idx: state[i] for i, cr in enumerate(comps)}
+        reds, nonbot = {}, {}
+        for j, (d, src, dst, mask, env) in enumerate(shards):
+            st = {c: v.to(d) for c, v in state_d.items()}
+            src_l = src.long()
+            evals = _propagate(comps, st, src, env)
+            eactive = (active.to(d)[src_l] & mask) if model == "pull+" \
+                else mask
+            work[j] = work[j] + eactive.sum()
+            masked = {i: torch.where(eactive, evals[i],
+                                     _ident(comps_by_idx[i]))
+                      for i in evals}
+            for p in plans:
+                for c, v in plan_segment_reduce(p, masked, dst, n,
+                                                comps_by_idx).items():
+                    reds.setdefault(c, []).append(v)
+            if model != "pull+":
+                for cr in comps:
+                    nonbot.setdefault(cr.idx, []).append(
+                        segment.segment_reduce(
+                            "or", (st[cr.idx][src_l] != _ident(cr)) & mask,
+                            dst, n))
+            reduces[j] += 1
+        red = {c: v[0] for c, v in
+               cross_shard(plans, reds, mesh, comps_by_idx).items()}
+        if model == "pull+":
+            new_d = {}
+            for p in plans:
+                new_d.update(plan_merge(p, state_d, red, comps_by_idx))
+        else:
+            red = _apply_epilogue(comps, red)
+            has_pred = {c: segment.psum_like("or", v, mesh)[0]
+                        for c, v in nonbot.items()}
+            new_d = _recompute_merge(plans, comps_by_idx, state_d, red,
+                                     has_pred)
+        new = tuple(new_d[cr.idx] for cr in comps)
+        ch = _changed(comps, new, state, tol)
+        div = div | _divergence(comps, new)
+        resid = _residual(comps, new, state)
+        active = ch & ~div
+        state = new
+        k += 1
+    check_shard_replication(reduces, "iteration count", "distributed")
+    work_h = torch.stack([w.to(devs[0]) for w in work]).tolist()
+    res = _finish(comps, tuple(s.to(g.device) for s in state), active, k,
+                  sum(work_h), div, resid)
+    res.shards = k_shards
+    res.shard_work = tuple(work_h)
+    return res

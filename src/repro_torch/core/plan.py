@@ -10,16 +10,19 @@ acting as hints that are normalized exactly once.  The resolved
 ``SWITCH_K``, ``"sorted"`` resolution, ``"auto"`` direction).
 
 Engines: ``pull``, ``push``, ``adaptive`` and ``dense`` (the reference
-engines of ``core.iterate``) and ``cuda`` (the direction-optimized
+engines of ``core.iterate``), ``cuda`` (the direction-optimized
 blocked-ELL engine whose sweeps are the hand-written CUDA kernels — the
-reference's ``pallas``).  ``degrade_plan`` gives the plan one step of the
-guard fallback chain runs under.  ``batch_size`` / ``batch_lane``
-describe a batch of query sources: "vmapped" on ``cuda`` (one launch per
-sweep per iteration for the whole batch, the reference's name for it),
-"sequential" elsewhere (B solo queries, a recorded degradation).
-``incremental`` is the mutation-aware mode of a query over a mutated graph
-(``mutation=``): "delta" (warm start, touched-frontier seed) or "full" (the
-cold recompute).  The sharded engines belong to a later slice.
+reference's ``pallas``) and the sharded engines over a
+``partition.ShardMesh``: ``distributed`` (segment ops per shard) and
+``cuda_sharded`` (the cuda sweeps per shard — the reference's
+``pallas_sharded``), shaped by ``shard_strategy`` and ``axes``.
+``degrade_plan`` gives the plan one step of the guard fallback chain runs
+under.  ``batch_size`` / ``batch_lane`` describe a batch of query
+sources: "vmapped" on ``cuda`` (one launch per sweep per iteration for the
+whole batch, the reference's name for it), "sequential" elsewhere (B solo
+queries, a recorded degradation).  ``incremental`` is the mutation-aware
+mode of a query over a mutated graph (``mutation=``): "delta" (warm start,
+touched-frontier seed) or "full" (the cold recompute).
 
 A recorded-stats feedback cache closes the loop: each executed query
 records its push/pull split and resolve work per (graph, query kind);
@@ -37,6 +40,7 @@ from typing import Optional
 from repro_torch.core import iterate
 from repro_torch.core.fusion import FusedProgram, Lex
 from repro_torch.core.synthesis import DirectKernels
+from repro_torch.graph.partition import STRATEGIES, check_mesh
 
 DENSE_FRONTIER = 0.05      # FALLBACK switch point (switch_k=None): frontier
                            # vertex fraction above which the pull sweep wins
@@ -57,7 +61,10 @@ ADAPT_SPAN = 4.0
 ADAPT_PUSH_HI = 0.75
 ADAPT_PUSH_LO = 0.25
 
-ENGINES = ("pull", "push", "adaptive", "dense", "cuda")
+ENGINES = ("pull", "push", "adaptive", "dense", "cuda", "distributed",
+           "cuda_sharded")
+
+SHARDED_ENGINES = ("distributed", "cuda_sharded")
 
 
 def _normalize_switch_k(switch_k, dense_threshold=DENSE_FRONTIER):
@@ -121,6 +128,9 @@ def assert_normalized(plan: "ExecutionPlan") -> None:
             f"unnormalized push_resolution {plan.push_resolution!r}")
     if plan.incremental not in (None, "delta", "full"):
         raise ValueError(f"unnormalized incremental {plan.incremental!r}")
+    if plan.shard_strategy not in STRATEGIES:
+        raise ValueError(
+            f"unnormalized shard_strategy {plan.shard_strategy!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +144,8 @@ class ExecutionPlan:
     dense_threshold: float = DENSE_FRONTIER
     push_resolution: str = PUSH_RESOLUTION
     resolution_hint: Optional[str] = None
+    shard_strategy: str = "contiguous"
+    axes: tuple = ("data",)
     batch_size: Optional[int] = None
     batch_lane: Optional[str] = None
     validate: bool = True
@@ -303,8 +315,10 @@ def _adapted_resolution(rec: FeedbackRecord) -> Optional[str]:
 
 def plan_execution(g, prog=None, *, engine: Optional[str] = None,
                    model: Optional[str] = None,
+                   mesh=None, axes=("data",),
                    switch_k="auto", dense_threshold: Optional[float] = None,
                    push_resolution: Optional[str] = None,
+                   shard_strategy: Optional[str] = None,
                    validate: bool = True,
                    on_nonconverge: str = "raise",
                    fallback: bool = False,
@@ -317,9 +331,11 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
     """Resolve every execution knob of one query into an ``ExecutionPlan``.
 
     An explicit caller kwarg always wins; ``engine=None`` takes the entry
-    point's default; ``engine="auto"`` picks ``cuda``; unset knobs take the
-    documented defaults.  ``batch`` (B query sources) resolves the batch
-    lane.  ``mutation=`` (a ``graph.mutate.MutationDelta``, or anything
+    point's default; ``engine="auto"`` picks ``cuda_sharded`` with a
+    ``mesh`` of more than one device, else ``cuda``; unset knobs take the
+    documented defaults.  ``mesh`` must be a ``partition.ShardMesh``; the
+    plan depends on it only through its device count.  ``batch`` (B query
+    sources) resolves the batch lane.  ``mutation=`` (a ``graph.mutate.MutationDelta``, or anything
     with ``inserted`` / ``deleted`` / ``touched`` / ``has_deletes``)
     resolves ``incremental``: an edit of at most ``INCREMENTAL_DELTA`` of
     |E| plans "delta" (warm start + touched-frontier seed), a larger one,
@@ -342,9 +358,12 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
                    0 if touched is None else int(getattr(touched, "size",
                                                          len(touched))),
                    bool(getattr(mutation, "has_deletes", False)))
-    hints_key = (engine, model, switch_k, dense_threshold, push_resolution,
-                 validate, on_nonconverge, fallback, divergence_sentinel,
-                 adaptive, batch, mut_key, default_engine)
+    hints_key = (engine, model,
+                 None if mesh is None else _mesh_device_count(mesh),
+                 _axes_key(axes), switch_k, dense_threshold, push_resolution,
+                 shard_strategy, validate, on_nonconverge, fallback,
+                 divergence_sentinel, adaptive, batch, mut_key,
+                 default_engine)
     cache_key = (id(g), kind, hints_key, fb_epoch)
     if not explain:
         hit = _PLAN_CACHE.get(cache_key)
@@ -360,7 +379,13 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
     if engine is None:
         eng, reason = default_engine, f"entry-point default ({default_engine!r})"
     elif engine == "auto":
-        eng, reason = "cuda", "auto: single device → blocked-ELL CUDA engine"
+        if mesh is not None and _mesh_device_count(mesh) > 1:
+            eng = "cuda_sharded"
+            reason = (f"auto: mesh with {_mesh_device_count(mesh)} devices "
+                      "→ shard-local fused sweeps")
+        else:
+            eng, reason = "cuda", \
+                "auto: single device → blocked-ELL CUDA engine"
     else:
         eng, reason = engine, "caller hint"
     if eng not in ENGINES:
@@ -368,7 +393,7 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
     if decisions is not None:
         decisions["engine"] = reason
 
-    if eng == "cuda":
+    if eng in ("cuda", "cuda_sharded"):
         direction = _cuda_direction(model)
         if decisions is not None:
             decisions["direction"] = (
@@ -409,6 +434,13 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
     if decisions is not None:
         decisions["push_resolution"] = res_reason
 
+    strat = shard_strategy if shard_strategy is not None else "contiguous"
+    if strat not in STRATEGIES:
+        raise ValueError(f"unknown shard strategy {strat!r}")
+    if decisions is not None:
+        decisions["shard_strategy"] = ("caller hint" if shard_strategy
+                                       is not None else "contiguous default")
+
     lane = None
     if batch is not None:
         lane = "vmapped" if eng == "cuda" else "sequential"
@@ -442,6 +474,7 @@ def plan_execution(g, prog=None, *, engine: Optional[str] = None,
         engine=eng, model=model, direction=direction,
         switch_k=k_norm, dense_threshold=dt,
         push_resolution=res, resolution_hint=push_resolution,
+        shard_strategy=strat, axes=_axes_key(axes),
         batch_size=batch, batch_lane=lane, validate=validate,
         on_nonconverge=on_nonconverge,
         fallback=fallback, divergence_sentinel=divergence_sentinel,
@@ -460,9 +493,22 @@ def degrade_plan(plan: ExecutionPlan, engine: str) -> ExecutionPlan:
     """The plan a guard-fallback step executes under: same normalized knobs,
     target engine, with the resolution re-resolved from the raw hint (an
     explicit caller hint survives the hop; a hintless plan lands on the
-    documented dst-sorted default)."""
+    documented dst-sorted default).  A step off the sharded engines drops
+    the shard strategy and axes to their defaults."""
     if engine == plan.engine:
         return plan
+    sharded = {} if engine in SHARDED_ENGINES else \
+        {"shard_strategy": "contiguous", "axes": ("data",)}
     return dataclasses.replace(
         plan, engine=engine,
-        push_resolution=_check_resolution(plan.resolution_hint))
+        push_resolution=_check_resolution(plan.resolution_hint), **sharded)
+
+
+def _axes_key(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _mesh_device_count(mesh) -> int:
+    """The shard count of a ``ShardMesh`` (its devices, repeats counted);
+    anything else raises ``TypeError``."""
+    return check_mesh(mesh).device_count

@@ -4,6 +4,9 @@ Condition C6 of the paper (``R(n, ⊥) = n``) makes ⊥ the identity element of
 every admissible reduction, so ⊥ is represented by the identity value of the
 monoid.  Every engine draws identities from here so they agree bit-for-bit.
 
+``psum_like`` folds the per-shard partials of the sharded engines in shard
+order.
+
 Float sums never use atomics: a float ``sum``/``prod`` segment reduction
 sorts by segment (stable) and reduces each contiguous segment with
 ``torch.segment_reduce``, so its order is fixed run to run on the card.
@@ -107,6 +110,33 @@ def combine(op: str, a, b):
     if op == "prod":
         return a * b
     raise ValueError(f"unknown reduction {op}")
+
+
+_MONOIDS = ("min", "max", "sum", "prod", "or", "and")
+
+
+def psum_like(op: str, parts, mesh) -> list:
+    """Cross-shard combine of the sharded engines: the k per-shard partials
+    ``parts`` (``parts[j]`` on ``mesh.devices[j]``) folded with ``combine``
+    in shard order 0…k−1 on ``mesh.devices[0]``, the result handed back to
+    each shard's device (a list; no copy where a shard shares that device).
+    ``or`` / ``and`` fold as int32 max / min, ``prod`` as a product.  The
+    fixed order makes float sums reproducible run to run; they may differ
+    from a collective's summation tree in the last ulps."""
+    if op not in _MONOIDS:
+        raise ValueError(f"unknown reduction {op}")
+    devs = tuple(mesh.devices)
+    if len(parts) != len(devs):
+        raise ValueError(f"{len(parts)} partials for {len(devs)} shards")
+    fold = {"or": "max", "and": "min"}.get(op, op)
+    acc = None
+    for p in parts:
+        p = p.to(devs[0])
+        if op in ("or", "and"):
+            p = p.to(torch.int32)
+        acc = p if acc is None else combine(fold, acc, p)
+    acc = acc.to(parts[0].dtype)
+    return [acc.to(d) for d in devs]
 
 
 def segment_softmax(scores, segment_ids, num_segments: int):

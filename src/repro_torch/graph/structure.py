@@ -1,6 +1,6 @@
 """Graph containers and the blocked-ELL layouts of the CUDA edge sweeps.
 
-The port's counterpart of ``repro.graph.structure`` (its non-sharded part).
+The port's counterpart of ``repro.graph.structure``.
 Edges are stored twice, in destination-sorted order (pull: segment
 reductions key on ``dst``) and in source-sorted order (push: scatters key on
 ``src``), as torch tensors on the graph's device.
@@ -423,9 +423,11 @@ def _tile_nnz(rows: torch.Tensor, ks: torch.Tensor, n_pad: int, width: int,
 
 
 def to_blocked_ell(g: Graph, block_v: int = 8, block_e: int = 128,
-                   direction: str = "in") -> BlockedELL:
+                   direction: str = "in", min_width: int = 0) -> BlockedELL:
     """Build the blocked-ELL layout keyed by dst (``direction="in"``) or by
-    src (``direction="out"``) on the graph's device."""
+    src (``direction="out"``) on the graph's device.  ``min_width`` (a
+    multiple of ``block_e``) floors the padded width: the sharded layouts
+    widen every shard to the widest, which only appends padding slots."""
     e = g.by_dst
     if direction == "in":
         row_of, nbr_of, deg = e.dst, e.src, g.in_deg
@@ -434,7 +436,7 @@ def to_blocked_ell(g: Graph, block_v: int = 8, block_e: int = 128,
     else:
         raise ValueError(f"direction must be 'in' or 'out', got {direction!r}")
     n = g.n
-    width = _padded_width(deg, block_e)
+    width = max(_padded_width(deg, block_e), int(min_width))
     n_pad = ((n + block_v - 1) // block_v) * block_v
     dev = g.device
     rows = row_of.long()
@@ -571,6 +573,200 @@ def push_resolution_cached(g: Graph, block_v: int = 8,
                                               block_e=block_e))
 
 
+# ---------------------------------------------------------------------------
+# Sharded layouts of the cuda_sharded engine: one blocked-ELL pair and one
+# resolution per vertex-cut shard, each on its shard's device.
+# ---------------------------------------------------------------------------
+
+def _shard_devices(g: Graph, k: int, devices) -> tuple:
+    devices = (g.device,) * k if devices is None else \
+        tuple(torch.device(d) for d in devices)
+    if len(devices) != k:
+        raise ValueError(f"{len(devices)} devices for {k} shards")
+    return devices
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedELL:
+    """Per-shard blocked-ELL layouts of one k-way vertex-cut.
+
+    ``shards[j]`` is exactly ``to_blocked_ell`` of the j-th
+    ``partition.shard_subgraphs`` block on that shard's device, widened on
+    the slot axis to the widest shard (``width``, a multiple of
+    ``block_e``): the padding slots carry ``mask=False`` and count 0 in
+    ``tile_nnz``, so they reduce to identities or skip.  The fields are
+    per-shard tuples (shards may lie on different devices); the reference
+    stacks them on a leading [k] axis.  ``row_deg[j]`` (int64 [n_pad])
+    counts shard j's real slots per row: on the ``direction="out"`` layout
+    shard j's out-degrees, whose sum over shards is the global out-degree,
+    the signal of the global direction switch."""
+    k: int
+    n: int
+    n_pad: int
+    width: int
+    block_v: int
+    block_e: int
+    direction: str
+    strategy: str
+    shards: tuple            # k BlockedELL
+    row_deg: tuple           # k int64 [n_pad]
+    num_edges: int           # Σ real edges over the shards (= |E|)
+
+    @property
+    def nbrs(self) -> tuple:
+        return tuple(s.nbrs for s in self.shards)
+
+    @property
+    def weight(self) -> tuple:
+        return tuple(s.weight for s in self.shards)
+
+    @property
+    def capacity(self) -> tuple:
+        return tuple(s.capacity for s in self.shards)
+
+    @property
+    def mask(self) -> tuple:
+        return tuple(s.mask for s in self.shards)
+
+    @property
+    def tile_nnz(self) -> tuple:
+        return tuple(s.tile_nnz for s in self.shards)
+
+
+def to_sharded_ell(g: Graph, k: int, strategy: str = "contiguous",
+                   block_v: int = 8, block_e: int = 128,
+                   direction: str = "in", devices=None) -> ShardedELL:
+    """The per-shard blocked-ELL layouts of a k-way vertex-cut, shard j on
+    ``devices[j]`` (the graph's device by default): each built by the
+    single-device rules on its ``shard_subgraphs`` block, at the widest
+    shard's width, so a shard's sweep is bitwise a single-device sweep over
+    its edge subset."""
+    from repro_torch.graph.partition import shard_subgraphs
+    if direction not in ("in", "out"):
+        raise ValueError(f"direction must be 'in' or 'out', got {direction!r}")
+    subs = shard_subgraphs(g, k, strategy, _shard_devices(g, k, devices))
+    width = max(_padded_width(s.in_deg if direction == "in" else s.out_deg,
+                              block_e) for s in subs)
+    shards = tuple(to_blocked_ell(s, block_v=block_v, block_e=block_e,
+                                  direction=direction, min_width=width)
+                   for s in subs)
+    return ShardedELL(
+        k=k, n=g.n, n_pad=shards[0].n_pad, width=width, block_v=block_v,
+        block_e=block_e, direction=direction, strategy=strategy,
+        shards=shards,
+        row_deg=tuple(e.mask.sum(1, dtype=torch.int64) for e in shards),
+        num_edges=sum(s.num_edges for s in subs))
+
+
+def _devices_key(g: Graph, k: int, devices) -> tuple:
+    return tuple(str(d) for d in _shard_devices(g, k, devices))
+
+
+_SHARDED_ELL_CACHE: dict = {}
+
+
+def sharded_ell_cached(g: Graph, k: int, strategy: str = "contiguous",
+                       block_v: int = 8, block_e: int = 128,
+                       direction: str = "in", devices=None) -> ShardedELL:
+    """Memoized ``to_sharded_ell`` (one entry per graph, k, strategy, tile
+    shape, direction and shard devices)."""
+    key = (id(g), k, strategy, block_v, block_e, direction,
+           _devices_key(g, k, devices))
+    return _cached(_SHARDED_ELL_CACHE, key, g,
+                   lambda: to_sharded_ell(g, k, strategy=strategy,
+                                          block_v=block_v, block_e=block_e,
+                                          direction=direction,
+                                          devices=devices))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedPushResolution:
+    """Per-shard dst-sorted resolutions of one k-way vertex-cut.
+
+    ``shards[j]`` is ``to_push_resolution`` of the j-th ``shard_subgraphs``
+    block on its device, built against the widened widths (the widest
+    shard's, which ``to_sharded_ell`` sweeps), so its flat ``in2out``
+    indices address the shard's widened out rectangle; ``contrib`` is
+    −1-padded to the widest shard's list width.  Per-shard tuples, as
+    ``ShardedELL``'s."""
+    k: int
+    n: int
+    n_pad: int
+    width: int               # dst-major width, max over shards
+    out_width: int           # out-rectangle width, max over shards
+    block_v: int
+    block_e: int
+    strategy: str
+    shards: tuple            # k PushResolution
+
+    @property
+    def in2out(self) -> tuple:
+        return tuple(r.in2out for r in self.shards)
+
+    @property
+    def valid(self) -> tuple:
+        return tuple(r.valid for r in self.shards)
+
+    @property
+    def src_tile(self) -> tuple:
+        return tuple(r.src_tile for r in self.shards)
+
+    @property
+    def tile_nnz(self) -> tuple:
+        return tuple(r.tile_nnz for r in self.shards)
+
+    @property
+    def contrib(self) -> tuple:
+        return tuple(r.contrib for r in self.shards)
+
+
+def to_sharded_push_resolution(g: Graph, k: int,
+                               strategy: str = "contiguous",
+                               block_v: int = 8, block_e: int = 128,
+                               devices=None) -> ShardedPushResolution:
+    """The per-shard resolutions of a k-way vertex-cut.  The widened widths
+    come first (the widest shard's padded widths, ``to_sharded_ell``'s
+    rule) and every shard's permutation is built against them."""
+    from repro_torch.graph.partition import shard_subgraphs
+    subs = shard_subgraphs(g, k, strategy, _shard_devices(g, k, devices))
+    w_in = max(_padded_width(s.in_deg, block_e) for s in subs)
+    w_out = max(_padded_width(s.out_deg, block_e) for s in subs)
+    rs = [to_push_resolution(s, block_v=block_v, block_e=block_e,
+                             min_width=w_in, min_out_width=w_out)
+          for s in subs]
+    c_max = max(r.contrib.shape[1] for r in rs)
+
+    def widen(r):
+        if r.contrib.shape[1] == c_max:
+            return r
+        c = torch.full((r.contrib.shape[0], c_max), -1, dtype=torch.int32,
+                       device=r.contrib.device)
+        c[:, :r.contrib.shape[1]] = r.contrib
+        return dataclasses.replace(r, contrib=c)
+
+    return ShardedPushResolution(
+        k=k, n=g.n, n_pad=rs[0].n_pad, width=w_in, out_width=w_out,
+        block_v=block_v, block_e=block_e, strategy=strategy,
+        shards=tuple(widen(r) for r in rs))
+
+
+_SHARDED_RES_CACHE: dict = {}
+
+
+def sharded_push_resolution_cached(g: Graph, k: int,
+                                   strategy: str = "contiguous",
+                                   block_v: int = 8, block_e: int = 128,
+                                   devices=None) -> ShardedPushResolution:
+    """Memoized ``to_sharded_push_resolution`` (one entry per graph, k,
+    strategy, tile shape and shard devices)."""
+    key = (id(g), k, strategy, block_v, block_e,
+           _devices_key(g, k, devices))
+    return _cached(_SHARDED_RES_CACHE, key, g,
+                   lambda: to_sharded_push_resolution(
+                       g, k, strategy=strategy, block_v=block_v,
+                       block_e=block_e, devices=devices))
+
+
 # Per-graph edge→slot maps kept by ``graph.mutate``: in a PATCHED layout an
 # edge's slot is wherever a free slot was, not the left-to-right fill order,
 # so a mutation records the actual (k_in, k_out) per edge (int64 tensors on
@@ -581,11 +777,12 @@ _SLOT_CACHE: dict = {}
 
 
 def clear_graph_caches(g: Graph) -> int:
-    """Drop every cached derived structure of ONE graph (layouts,
-    resolutions, degrees, validation summary, statistics and mutation slot
-    maps); returns the number of entries dropped."""
+    """Drop every cached derived structure of ONE graph (layouts, sharded
+    layouts, resolutions, degrees, validation summary, statistics and
+    mutation slot maps); returns the number of entries dropped."""
     dropped = 0
-    for cache in (_ELL_CACHE, _RES_CACHE, _WDEG_CACHE, _VALID_CACHE,
+    for cache in (_ELL_CACHE, _SHARDED_ELL_CACHE, _RES_CACHE,
+                  _SHARDED_RES_CACHE, _WDEG_CACHE, _VALID_CACHE,
                   _STATS_CACHE, _SLOT_CACHE):
         stale = [k for k, (ref, _) in list(cache.items()) if ref() is g]
         for k in stale:

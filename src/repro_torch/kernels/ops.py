@@ -1,10 +1,11 @@
-"""The single-device fixpoint of the ``cuda`` engine.
+"""The fixpoints of the ``cuda`` and ``cuda_sharded`` engines.
 
-The port of ``repro.kernels.ops.iterate_pallas`` and ``iterate_pallas_batch``
-(single-device): the same fixpoint semantics as ``iterate.iterate_graph``, with
-every edge sweep executed by the hand-written CUDA kernels of
-``edge_reduce``.  One iteration launches either the pull kernel or the
-push kernel followed by the sorted-resolution kernel.
+The port of ``repro.kernels.ops.iterate_pallas``, ``iterate_pallas_batch``
+and ``iterate_pallas_sharded``: the same fixpoint semantics as
+``iterate.iterate_graph``, with every edge sweep executed by the
+hand-written CUDA kernels of ``edge_reduce``.  One iteration launches
+either the pull kernel or the push kernel followed by the
+sorted-resolution kernel.
 
 ``lax.while_loop`` becomes a host loop that reads the frontier once per
 iteration (together with the frontier's edge mass when the direction
@@ -38,6 +39,13 @@ queries of one round over the one shared layout: the carry gains a slot
 axis, each live slot picks its own direction, and one iteration launches
 at most one pull, one push and one resolve kernel for the whole batch.
 
+``iterate_cuda_sharded`` (the port of ``iterate_pallas_sharded``) runs one
+query over the k vertex-cut shards of a ``partition.ShardMesh``: each shard
+sweeps its own layouts with the same kernels, the per-vertex partials fold
+across the shards in shard order, and the direction switch reads the
+frontier's edge mass summed over the shards, so the sharded query takes the
+single-device push/pull sequence.
+
 ``embedding_bag`` and ``ell_softmax`` are the embedding-bag and ELL-softmax
 kernels' entry points under the names the reference's ``ops`` gives them.
 """
@@ -55,8 +63,13 @@ from repro_torch.core import guard, iterate
 from repro_torch.core.plan import (DENSE_FRONTIER, PUSH_RESOLUTION,
                                    _check_resolution, _normalize_switch_k,
                                    _plan_levels, assert_normalized)
+from repro_torch.graph import segment
+from repro_torch.graph.partition import STRATEGIES, check_mesh, mesh_shards
 from repro_torch.graph.structure import (Graph, blocked_ell_cached,
-                                         push_resolution_cached, w_out_deg)
+                                         push_resolution_cached,
+                                         sharded_ell_cached,
+                                         sharded_push_resolution_cached,
+                                         w_out_deg)
 from repro_torch.kernels import edge_reduce as _er
 from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: F401
 from repro_torch.kernels.segment_softmax import ell_softmax  # noqa: F401
@@ -320,8 +333,41 @@ class _Fixpoint:
     def __init__(self, g, comps, plans, max_iter, tol, direction,
                  dense_threshold, switch_k, push_resolution,
                  divergence_sentinel, plan):
+        self._resolve(g, comps, plans, max_iter, tol, direction,
+                      dense_threshold, switch_k, push_resolution,
+                      divergence_sentinel, plan)
         n = g.n
         dev = g.device
+        self.ell = {"pull": blocked_ell_cached(g, direction="in")
+                    if "pull" in self.use else None,
+                    "push": blocked_ell_cached(g, direction="out")
+                    if "push" in self.use else None}
+        self.res = push_resolution_cached(g) if self.sorted_res else None
+        first = self.ell[self.use[0]]
+        self.block_v, self.block_e = first.block_v, first.block_e
+        self.n_pad = n_pad = first.n_pad
+        self.out_deg_pad, self.wdeg_pad = _degrees_pad(g, n_pad)
+        # unclamped degrees for the Gemini |E_frontier| estimate (exact
+        # int64)
+        self.out_deg_raw = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+        self.out_deg_raw[:n] = g.out_deg.to(torch.int64)
+        self.num_edges = int(first.tile_nnz.sum())
+        self.tiles_static = first.tiles_static
+        # A non-idempotent round sweeps every tile each iteration, so under
+        # sorted resolution its resolution-tile activity is the same every
+        # iteration (every live tile, which is also what the resolve
+        # kernel's has-pred probe must cover): computed once here.
+        self.res_static = None
+        if self.sorted_res and not self.idempotent:
+            self.res_static = _er.resolution_tile_activity(
+                self.res.contrib, self.tiles_static, self.res.tile_nnz)
+        self.ones_act = torch.ones(n_pad, dtype=torch.int32, device=dev)
+
+    def _resolve(self, g, comps, plans, max_iter, tol, direction,
+                 dense_threshold, switch_k, push_resolution,
+                 divergence_sentinel, plan):
+        """The plan knobs and the sweep round."""
+        n = g.n
         self.g, self.comps, self.plans, self.tol = g, comps, plans, tol
         self.nv = float(n)
         self.max_iter = max_iter if max_iter is not None else 2 * n + 4
@@ -343,35 +389,18 @@ class _Fixpoint:
         self.sentinel = divergence_sentinel
         self.rnd = sweep_round(comps, plans)
         self.comps_by_idx = {cr.idx: cr for cr in comps}
-        self.ell = {"pull": blocked_ell_cached(g, direction="in")
-                    if "pull" in self.use else None,
-                    "push": blocked_ell_cached(g, direction="out")
-                    if "push" in self.use else None}
         self.sorted_res = push_resolution == "sorted" and "push" in self.use
-        self.res = push_resolution_cached(g) if self.sorted_res else None
-        first = self.ell[self.use[0]]
-        self.block_v, self.block_e = first.block_v, first.block_e
-        self.n_pad = n_pad = first.n_pad
-        out_deg = g.out_deg
-        self.out_deg_pad = torch.zeros(n_pad, dtype=torch.float32, device=dev)
-        self.out_deg_pad[:n] = out_deg.clamp(min=1).to(torch.float32)
-        # unclamped degrees for the Gemini |E_frontier| estimate (exact
-        # int64)
-        self.out_deg_raw = torch.zeros(n_pad, dtype=torch.int64, device=dev)
-        self.out_deg_raw[:n] = out_deg.to(torch.int64)
-        self.wdeg_pad = torch.ones(n_pad, dtype=torch.float32, device=dev)
-        self.wdeg_pad[:n] = w_out_deg(g)
-        self.num_edges = int(first.tile_nnz.sum())
-        self.tiles_static = first.tiles_static
-        # A non-idempotent round sweeps every tile each iteration, so under
-        # sorted resolution its resolution-tile activity is the same every
-        # iteration (every live tile, which is also what the resolve
-        # kernel's has-pred probe must cover): computed once here.
-        self.res_static = None
-        if self.sorted_res and not self.idempotent:
-            self.res_static = _er.resolution_tile_activity(
-                self.res.contrib, self.tiles_static, self.res.tile_nnz)
-        self.ones_act = torch.ones(n_pad, dtype=torch.int32, device=dev)
+
+
+def _degrees_pad(g, n_pad):
+    """The P environment's degrees over the padded rows, on the graph's
+    device: out-degrees clamped to 1 and weighted out-degrees (padding rows
+    read 0 and 1)."""
+    out_deg = torch.zeros(n_pad, dtype=torch.float32, device=g.device)
+    out_deg[:g.n] = g.out_deg.clamp(min=1).to(torch.float32)
+    wdeg = torch.ones(n_pad, dtype=torch.float32, device=g.device)
+    wdeg[:g.n] = w_out_deg(g)
+    return out_deg, wdeg
 
 
 def _init_carry(fx: _Fixpoint, sources) -> tuple:
@@ -749,3 +778,258 @@ def _finish_batch(fx: _Fixpoint, carry) -> iterate.IterationResult:
     out.resolve_work = res_work
     out.gather_work = gather_work
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded queries: k vertex-cut shards of one graph, each sweeping its own
+# layouts with the same kernels, their partials folded across shards.
+# ---------------------------------------------------------------------------
+
+def cross_combines_per_iter(plans, comps, idempotent: bool) -> int:
+    """Cross-shard state folds (``segment.psum_like`` calls) per iteration
+    of the sharded fixpoint: one per lex level of every plan, plus the
+    has-pred ``or`` per component of a non-idempotent round.  The
+    direction switch's edge mass and the work counters are control
+    traffic, not state combines, and are not counted."""
+    c = sum(len(_plan_levels(p)) for p in plans)
+    if not idempotent:
+        c += len(comps)
+    return c
+
+
+def _on_device(dev: torch.device):
+    """The CUDA device context of a shard's launches (a library's kernels
+    launch on the current device); nothing on the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+class _Shard:
+    """One shard's layout set, on its device: the attributes ``_sweep``
+    reads (the shard's blocked-ELL pair and resolution, the global
+    degrees) and the shard's own static activities, edge count and
+    out-layout row degrees."""
+
+    def __init__(self, fx, j, ells, sres, out_deg_pad, wdeg_pad):
+        self.device = dev = fx.mesh.devices[j]
+        self.rnd, self.nv, self.sorted_res = fx.rnd, fx.nv, fx.sorted_res
+        self.ell = {d: ells[d].shards[j] if d in ells else None
+                    for d in ("pull", "push")}
+        self.res = sres.shards[j] if sres is not None else None
+        self.out_deg_pad = out_deg_pad.to(dev)
+        self.wdeg_pad = wdeg_pad.to(dev)
+        first = self.ell[fx.use[0]]
+        self.tiles_static = first.tiles_static
+        self.local_edges = int(first.tile_nnz.sum())
+        self.row_deg_out = ells["push"].row_deg[j] if "push" in ells \
+            else None
+        self.res_static = None
+        if self.sorted_res and not fx.idempotent:
+            self.res_static = _er.resolution_tile_activity(
+                self.res.contrib, self.tiles_static, self.res.tile_nnz)
+        self.ones_act = torch.ones(first.n_pad, dtype=torch.int32,
+                                   device=dev)
+
+
+class _ShardedFixpoint(_Fixpoint):
+    """The per-call set-up of one ``iterate_cuda_sharded`` query: the plan
+    knobs and sweep round of ``_Fixpoint``, the shard strategy, and one
+    ``_Shard`` layout set per shard of the mesh."""
+
+    def __init__(self, g, comps, plans, mesh, axes, strategy, max_iter,
+                 tol, direction, dense_threshold, switch_k, push_resolution,
+                 divergence_sentinel, plan):
+        self._resolve(g, comps, plans, max_iter, tol, direction,
+                      dense_threshold, switch_k, push_resolution,
+                      divergence_sentinel, plan)
+        if plan is not None:
+            strategy = plan.shard_strategy
+        elif strategy not in STRATEGIES:
+            raise ValueError(f"unknown shard strategy {strategy!r}")
+        self.mesh = check_mesh(mesh)
+        self.k = mesh_shards(mesh, axes)
+        self.strategy = strategy
+        devs = mesh.devices
+        ells = {d: sharded_ell_cached(
+            g, self.k, strategy=strategy,
+            direction={"pull": "in", "push": "out"}[d], devices=devs)
+            for d in self.use}
+        sres = sharded_push_resolution_cached(
+            g, self.k, strategy=strategy, devices=devs) \
+            if self.sorted_res else None
+        first = ells[self.use[0]]
+        self.n_pad, self.num_edges = first.n_pad, first.num_edges
+        out_deg_pad, wdeg_pad = _degrees_pad(g, self.n_pad)
+        self.shards = [_Shard(self, j, ells, sres, out_deg_pad, wdeg_pad)
+                       for j in range(self.k)]
+
+
+def iterate_cuda_sharded(g: Graph, comps, plans, mesh, axes=("data",),
+                         strategy: str = "contiguous",
+                         max_iter: Optional[int] = None, tol: float = 0.0,
+                         direction: str = "auto",
+                         dense_threshold: float = DENSE_FRONTIER,
+                         switch_k="auto",
+                         push_resolution: str = PUSH_RESOLUTION,
+                         sources: Optional[dict] = None,
+                         divergence_sentinel: bool = True,
+                         init_state=None, checkpoint_every=None,
+                         ckpt_dir=None, resume: bool = False, delta=None,
+                         plan=None) -> iterate.IterationResult:
+    """Fixpoint of the fused reduction over the k vertex-cut shards of
+    ``mesh`` (a ``partition.ShardMesh``): the port of the reference's
+    ``iterate_pallas_sharded``.  Shard j holds its own blocked-ELL pair and
+    resolution on ``mesh.devices[j]`` (``structure.sharded_ell_cached`` /
+    ``sharded_push_resolution_cached``, edges split by ``strategy``:
+    "contiguous" | "dst_hash") and runs the same sweeps as
+    ``iterate_cuda``: the pull kernel deriving its tile activity, or the
+    push kernel and the resolve kernel over its own resolution.  Each
+    iteration launches one sweep (pull, or push + resolve) per shard; the
+    per-vertex partials fold across shards in shard order
+    (``iterate.cross_shard`` over ``segment.psum_like``: the primary of
+    every lex level, the secondaries masked to the identity where a
+    shard's primary is not the global best), and the folded reduction
+    feeds ``plan_merge`` (or the pull−/push− epilogue with the has-pred
+    folded by ``or``) on ``mesh.devices[0]``, where the state lives.
+
+    The direction switch stays global: one host read per iteration takes
+    the frontier's count and its edge mass, Σ over shards of the frontier
+    · the shard's out-layout row degrees (int64, exactly the single-device
+    mass), so the sharded query takes the single-device push/pull sequence
+    and, for idempotent rounds, its bits.  Knobs and ``plan`` act as in
+    ``iterate_cuda`` (``plan.shard_strategy`` overrides ``strategy``), and
+    so does the kernel-fault rule.
+
+    The result carries the single-device fields, ``resolve_work`` and
+    ``gather_work`` summed over shards, and ``shards``, ``shard_work``
+    (each shard's processed-tile edge work, int), ``shard_launches``
+    (sweeps per shard per iteration of the round: the directions it may
+    use) and ``cross_combines`` (state folds run).  A sharded query runs
+    whole and cold, as the reference's does: ``init_state``,
+    ``checkpoint_every``, ``ckpt_dir``, ``resume`` and ``delta`` raise
+    ``ValueError``."""
+    if (init_state is not None or checkpoint_every is not None
+            or ckpt_dir is not None or resume or delta is not None):
+        raise ValueError("the sharded engine runs whole, cold queries: no "
+                         "init_state, checkpoint or delta (warm starts and "
+                         "checkpoints are the cuda engine's)")
+    with _kernel_faults():
+        fx = _ShardedFixpoint(g, comps, plans, mesh, axes, strategy,
+                              max_iter, tol, direction, dense_threshold,
+                              switch_k, push_resolution, divergence_sentinel,
+                              plan)
+        return _run_sharded(fx, sources)
+
+
+def _run_sharded(fx: _ShardedFixpoint, sources) -> iterate.IterationResult:
+    """The sharded loop: ``_advance``'s body with one sweep per shard and
+    the cross-shard fold between the sweeps and the merge."""
+    comps, plans, mesh = fx.comps, fx.plans, fx.mesh
+    n, dev0 = fx.g.n, mesh.devices[0]
+    state = _padded_init_state(comps, n, fx.n_pad, sources, dev0)
+    active = torch.ones(fx.n_pad, dtype=torch.bool, device=dev0)
+    counters = [[torch.zeros((), dtype=torch.int64, device=sh.device)
+                 for sh in fx.shards] for _ in range(3)]
+    work, res_work, gather_work = counters
+    sweeps = [0] * fx.k
+    div = torch.zeros((), dtype=torch.bool, device=dev0)
+    resid = torch.zeros((), dtype=torch.float32, device=dev0)
+    k = pushes = 0
+    switching = fx.idempotent and len(fx.use) == 2
+    while k < fx.max_iter:
+        if switching and fx.switch_k is not None:
+            # one host read per iteration: frontier count + its edge mass
+            # over every shard
+            mass = torch.stack([
+                (active.to(sh.device) * sh.row_deg_out).sum().to(dev0)
+                for sh in fx.shards]).sum()
+            n_act, e_frontier = torch.stack([active.sum(), mass]).tolist()
+            use_push = e_frontier <= fx.num_edges / fx.switch_k
+        elif switching:
+            n_act = int(active.sum())
+            use_push = n_act / n <= fx.dense_threshold
+        else:
+            n_act = int(active.any())
+        if n_act == 0:
+            break
+        state_d = {cr.idx: state[i] for i, cr in enumerate(comps)}
+        d = ("push" if use_push else "pull") if switching else fx.use[0]
+        reds, hps = {}, {}
+        active_i32 = active.to(torch.int32)
+        with _step_range(d):
+            for j, sh in enumerate(fx.shards):
+                with _on_device(sh.device):
+                    red, hp, tile_w, res_w, gat_w = _shard_sweep(
+                        fx, sh, d, state_d, active_i32)
+                work[j] = work[j] + tile_w
+                res_work[j] = res_work[j] + res_w
+                gather_work[j] = gather_work[j] + gat_w
+                sweeps[j] += 1
+                for c, v in red.items():
+                    reds.setdefault(c, []).append(v)
+                for c, v in hp.items():
+                    hps.setdefault(c, []).append(v)
+        red = {c: v[0] for c, v in iterate.cross_shard(
+            plans, reds, mesh, fx.comps_by_idx).items()}
+        if fx.idempotent:
+            new_d = {}
+            for p in plans:
+                new_d.update(iterate.plan_merge(p, state_d, red,
+                                                fx.comps_by_idx))
+        else:
+            hp = {c: segment.psum_like("or", v, mesh)[0]
+                  for c, v in hps.items()}
+            red = iterate._apply_epilogue(comps, red)
+            new_d = iterate._recompute_merge(plans, fx.comps_by_idx, state_d,
+                                             red, hp)
+        pushes += d == "push"
+        new = tuple(new_d[cr.idx] for cr in comps)
+        ch = iterate._changed(comps, new, state, fx.tol)
+        if fx.sentinel:
+            div = div | iterate._divergence(comps, new)
+            resid = iterate._residual(comps, new, state)
+            ch = ch & ~div
+        state, active = new, ch
+        k += 1
+    iterate.check_shard_replication(sweeps, "sweep count", "cuda_sharded")
+    per_shard = torch.stack([c.to(dev0) for part in counters
+                             for c in part]).tolist()
+    work_h = per_shard[:fx.k]
+    out = iterate._finish(comps, tuple(s[:n].to(fx.g.device) for s in state),
+                          active[:n], k, sum(work_h), div, resid)
+    out.push_iters = pushes
+    out.pull_iters = k - pushes
+    out.resolve_work = sum(per_shard[fx.k:2 * fx.k])
+    out.gather_work = sum(per_shard[2 * fx.k:])
+    out.shards = fx.k
+    out.shard_work = tuple(work_h)
+    out.shard_launches = len(fx.use)
+    out.cross_combines = k * cross_combines_per_iter(plans, comps,
+                                                     fx.idempotent)
+    return out
+
+
+def _shard_sweep(fx, sh: _Shard, d, state_d, active_i32):
+    """Shard ``sh``'s sweep of one iteration in direction ``d``, on its
+    device: ``(red, hp, edge work, resolve work, gather work)``.  Idempotent rounds
+    sweep the frontier's tiles (edge work: the real slots of the tiles the
+    shard ran), the others every static tile with the has-pred probe
+    (edge work: the shard's edges)."""
+    st = {c: v.to(sh.device) for c, v in state_d.items()}
+    if not fx.idempotent:
+        red, hp, res_w, gat_w = _sweep(sh, d, st, sh.ones_act,
+                                       sh.tiles_static, True)
+        return red, hp, sh.local_edges, res_w, gat_w
+    active = active_i32.to(sh.device)
+    e = sh.ell[d]
+    if d == "pull":
+        red, tile_act = _er.fused_ell_sweep_frontier(
+            fx.rnd, e.nbrs, e.weight, e.capacity, e.mask, e.tiles_static,
+            st, active, sh.out_deg_pad, sh.wdeg_pad, fx.nv)
+        res_w = gat_w = 0
+    else:
+        tile_act = _er.tile_activity_push(e.tile_nnz, active)
+        red, _hp, res_w, gat_w = _sweep(sh, d, st, active, tile_act, False)
+    return (red, {}, (e.tile_nnz.to(torch.int64) * tile_act).sum(), res_w,
+            gat_w)

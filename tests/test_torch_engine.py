@@ -174,7 +174,8 @@ def test_cuda_engine_matches_path_oracle(small_graphs):
 def test_entry_points_guard_device_and_later_kwargs(monkeypatch):
     _jg, tg = _pair()
     prog = TF.fuse(TU.ALL_SPECS["BFS"]())
-    with pytest.raises(NotImplementedError, match="sharded engines"):
+    # a mesh must be a ShardMesh (the sharded engines' mesh), on any engine
+    with pytest.raises(TypeError, match="ShardMesh"):
         TE.run_program(tg, prog, engine="cuda", device="cpu",
                        mesh=object())
     with pytest.raises(ValueError, match="graph lives on"):

@@ -216,7 +216,8 @@ def test_adaptive_is_the_floor(g, monkeypatch):
 
 
 def test_recoverable_rule():
-    assert guard.FALLBACK_CHAIN == {"cuda": "adaptive"}
+    assert guard.FALLBACK_CHAIN == {"cuda_sharded": "cuda",
+                                    "cuda": "adaptive"}
     assert guard.recoverable(RuntimeError("lowering failed"))
     assert guard.recoverable(torch.OutOfMemoryError("CUDA out of memory."))
     assert guard.out_of_memory(torch.OutOfMemoryError("CUDA out of memory."))

@@ -1497,3 +1497,110 @@ def test_service_analytics_smoke_on_card(cuda_device):
     assert card["verified_bitwise"] == 24
     assert {k: v for k, v in card.items() if not k.startswith("wall")} == \
         {k: v for k, v in cpu.items() if not k.startswith("wall")}
+
+
+# ---------------------------------------------------------------------------
+# The sharded engines: k vertex-cut shards on the one card.
+# ---------------------------------------------------------------------------
+
+_SHARDED_GRAPHS = {"rmxs": (400, 3200, 11), "rmat4096": (4096, 65536, 7)}
+
+
+def _launched(fn):
+    TER.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: TER.LAUNCHES[k] for k in ("pull", "push", "resolve")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["contiguous", "dst_hash"])
+@pytest.mark.parametrize("gname", list(_SHARDED_GRAPHS))
+def test_cuda_sharded_on_card_matches_cuda(cuda_device, gname, strategy):
+    """``ShardMesh.on("cuda", 4)``: BFS, SSSP and WSP on auto, pull and
+    push, and CC, bitwise the single-device cuda answer with its
+    iterations and push iterations, each kernel launched 4 × the
+    single-device count; PageRank within rtol 1e-5 with equal
+    iterations."""
+    from repro_torch.graph.partition import ShardMesh
+    n, e, seed = _SHARDED_GRAPHS[gname]
+    g = TS.rmat_graph(n, e, seed=seed, device=cuda_device)
+    mesh = ShardMesh.on(cuda_device, 4)
+    cases = [(name, model) for name in ("BFS", "SSSP", "WSP")
+             for model in (None, "pull", "push")] + [("CC", None)]
+    for name, model in cases:
+        gq = TS.undirected(g) if name == "CC" else g
+        prog = TF.fuse(TU.ALL_SPECS[name]())
+        one, l1 = _launched(lambda: TE.run_program(gq, prog, engine="cuda",
+                                                   model=model))
+        four, l4 = _launched(lambda: TE.run_program(
+            gq, prog, engine="cuda_sharded", mesh=mesh, model=model,
+            shard_strategy=strategy))
+        label = f"{name}/{model}"
+        assert torch.equal(one.value, four.value), label
+        assert four.value.device == one.value.device
+        assert (four.stats.iterations, four.stats.push_iters) == \
+            (one.stats.iterations, one.stats.push_iters), label
+        assert l4 == {k: 4 * v for k, v in l1.items()}, (label, l1, l4)
+        assert four.stats.engine_used == "cuda_sharded"
+        assert four.stats.fallbacks == () and four.stats.shards == 4
+    dk = TSy.pagerank_kernels(g.n, tol=1e-4 / g.n)
+    one = TE.run_direct(g, dk, engine="cuda")
+    four, l4 = _launched(lambda: TE.run_direct(
+        g, dk, engine="cuda_sharded", mesh=mesh, shard_strategy=strategy))
+    assert four.stats.iterations == one.stats.iterations
+    assert l4["pull"] == 4 * four.stats.iterations
+    torch.testing.assert_close(four.value, one.value, rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_empty_shards_on_card(cuda_device):
+    """k = 5 on a 3-edge line graph: two shards hold no edge, so their
+    walks find no live tile; every shard still launches and the answer is
+    the single-device one."""
+    from repro_torch.graph.partition import ShardMesh
+    g = TS.line_graph(4, device=cuda_device)
+    mesh = ShardMesh.on(cuda_device, 5)
+    for model in (None, "pull", "push"):
+        prog = TF.fuse(TU.bfs(0))
+        one, l1 = _launched(lambda: TE.run_program(g, prog, engine="cuda",
+                                                   model=model))
+        five, l5 = _launched(lambda: TE.run_program(
+            g, prog, engine="cuda_sharded", mesh=mesh, model=model))
+        assert torch.equal(one.value, five.value), model
+        assert five.stats.iterations == one.stats.iterations
+        assert l5 == {k: 5 * v for k, v in l1.items()}, model
+        assert sorted(five.stats.shard_work)[:2] == [0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["contiguous", "dst_hash"])
+@pytest.mark.parametrize("name", ["BFS", "WSP", "WPR"])
+def test_shard_kernels_match_plain_on_card(cuda_device, name, strategy):
+    """One shard's pull, push and resolve launches on its widened layouts
+    (4 shards of RM-XS: padding slot tiles past the shard's own width)
+    against their plain versions, as ``test_kernels_match_plain_on_card``
+    holds them on the whole graph."""
+    g, rnd, act, od, wd, st = _card_inputs(cuda_device, name, 1.0)
+    ein = TS.to_sharded_ell(g, 4, strategy, direction="in")
+    eout = TS.to_sharded_ell(g, 4, strategy, direction="out")
+    res = TS.to_sharded_push_resolution(g, 4, strategy)
+    j = int(np.argmin([int(e.tile_nnz.sum()) for e in ein.shards]))
+    for e in (ein.shards[j], eout.shards[j]):
+        assert bool((e.tile_nnz == 0).any())
+    _check_sweeps(rnd, act, od, wd, st, float(g.n), ein.shards[j],
+                  eout.shards[j], res.shards[j])
+
+
+@pytest.mark.gpu
+def test_distributed_on_card_matches_pull(cuda_device):
+    from repro_torch.graph.partition import ShardMesh
+    g = TS.rmat_graph(4096, 65536, seed=7, device=cuda_device)
+    mesh = ShardMesh.on(cuda_device, 4)
+    for name in ("BFS", "SSSP", "WP"):
+        prog = TF.fuse(TU.ALL_SPECS[name]())
+        want = TE.run_program(g, prog, engine="pull")
+        got = TE.run_program(g, prog, engine="distributed", mesh=mesh)
+        assert torch.equal(got.value, want.value), name
+        assert got.stats.iterations == want.stats.iterations
+        assert got.stats.shards == 4

@@ -71,8 +71,28 @@ def test_graph_package_imports_without_mutate():
         assert mutate.GraphValidationError is guard.GraphValidationError
         print("ok")
     """)
+    _run_each(code, first)
+
+
+def test_partition_imports_first_without_cycle():
+    """``graph.partition`` imports first, on its own, with no cycle through
+    ``graph.structure`` or ``core.plan``, and ``repro_torch.graph``
+    exports its mesh and partition."""
+    first = textwrap.dedent("""
+        from repro_torch.graph import partition
+        from repro_torch.core import plan
+        import repro_torch.graph as G
+        assert G.ShardMesh is partition.ShardMesh
+        assert G.partition_edges is partition.partition_edges
+        assert plan.check_mesh is partition.check_mesh
+        print("ok")
+    """)
+    _run_each(first)
+
+
+def _run_each(*codes):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for c in (code, first):
+    for c in codes:
         out = subprocess.run([sys.executable, "-c", c], capture_output=True,
                              text=True, env=env, timeout=300)
         assert out.returncode == 0, out.stderr[-3000:]
