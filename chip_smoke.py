@@ -205,7 +205,21 @@ libraries at once, into ``build/repro_torch/``), and then
    single-device query's (k per iteration of its direction).  Each line
    gives the per-shard edge work, launches, the sharded set-up seconds,
    the first and warm walls beside the single-device ones and the peak
-   device memory.
+   device memory;
+11. writes the analytics dry-run's records (``launch/analytics_dryrun.py``,
+   the reference's one fused WSP fixpoint vertex-cut over its (16, 16) and
+   (2, 16, 16) TPU meshes) for 256 and 512 shards at ogb_products' n and e,
+   built on ``meta`` with the card's allocated memory unchanged around
+   each; then runs that step for real on ``uniform_graph(2449029,
+   61859140, seed=0)`` (e′ edges once deduplicated): WSP from vertex 0
+   through the single-device cuda engine (its layouts built first, timed
+   as set-up; the sweep kernels' launches counted) and the pull engine, the graph's layouts dropped, then the
+   step over 256 and 512 shards (``make_production_mesh()``) on the one
+   card on the ``partition_edges`` blocks, each bitwise the cuda engine's
+   whole state and the pull engine's answer with equal iterations; the
+   256-shard step once more under torch.profiler (device busy time, idle
+   share).  Each line gives n, e′, iterations, the wall, the peak device
+   memory, each shard's edge work (min / max) and the phase's seconds.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -269,6 +283,8 @@ RMXS_WSSSP = (8, 13703)
 # The incremental bench's perturbation (benchmarks/fusion_bench.py): seeded
 # random inserts, a fraction of |E|, weights 0.1 + U[0, 1).
 INCR_SEED, INCR_FRAC = 7, 0.005
+# Phase 11's uniform graph at ogb_products' n and e (configs' GNN shape).
+OGB_SEED = 0
 
 
 def log(*parts):
@@ -2916,6 +2932,166 @@ def main(argv) -> int:
     record["profiles"] = profiles
     record["peak_mem_gb"] = max(record["peak_before_dense_bytes"],
                                 torch.cuda.max_memory_allocated()) / 1e9
+
+    # ------------------------------------------------------------------
+    # Phase 11: the analytics dry-run at ogb_products scale
+    # (``launch/analytics_dryrun.py``).  Both production meshes' records,
+    # built on ``meta`` with the card's allocated memory unchanged around
+    # each; then the very step run for real on one uniform graph of
+    # ogb_products' n and e: WSP from vertex 0 through the single-device
+    # cuda engine (its sweep launches counted) and the pull engine, the
+    # graph's layouts dropped, and the step over the 256- and 512-shard
+    # meshes on the one card, each bitwise both answers with equal
+    # iterations.
+    # ------------------------------------------------------------------
+    from repro_torch.graph.partition import partition_edges
+    from repro_torch.launch import analytics_dryrun as AD
+    from repro_torch.launch.dryrun import _mesh_tag
+    from repro_torch.launch.mesh import make_production_mesh
+    p11_n, p11_e = AD.OGB_N, AD.OGB_E
+    phase11_rows = []
+    t11 = time.perf_counter()
+
+    def log11(tag, row):
+        log(f"phase 11 {tag} " + json.dumps(row))
+        phase11_rows.append(dict(row, line=tag))
+
+    def p11_record(multi_pod, e):
+        """The dry-run record of one production mesh at (p11_n, e), built
+        on ``meta``: it must leave the card's allocated memory as it
+        was."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        rec = AD.build_record(make_production_mesh(multi_pod=multi_pod,
+                                                   device="meta"),
+                              p11_n, e, _mesh_tag(multi_pod))
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        log11("record", dict(rec, allocated_before=before,
+                             allocated_after=after))
+        if after != before:
+            raise RuntimeError(f"phase 11: building the {rec['mesh']} "
+                               f"record allocated {after - before} bytes "
+                               "on the card")
+        return rec
+
+    def p11_profile(label, fn):
+        """One more run of ``fn`` under torch.profiler: device busy time
+        against the wall, and the top device ops."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+        row = {"wall_ms": wall, "device_busy_ms": busy,
+               "idle_share": max(0.0, 1.0 - busy / wall),
+               "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                                 for e in top}}
+        profiles[label] = row
+        log11("profile", dict(row, label=label))
+
+    for multi_pod in (False, True):
+        p11_record(multi_pod, p11_e)
+    t0 = time.perf_counter()
+    g11 = TS.uniform_graph(p11_n, p11_e, seed=OGB_SEED, device=dev)
+    e11 = g11.num_edges
+    build_s = time.perf_counter() - t0
+    reset_peak()
+    setup("ogb_products uniform", g11)
+    (one, one_state), one_wall, one_l = counted(lambda: TE.run_program(
+        g11, progs["WSP"], engine="cuda", return_state=True))
+    on_cuda(one, "phase 11 cuda WSP")
+    one_warm = timed(lambda: TE.run_program(g11, progs["WSP"],
+                                            engine="cuda"))[1]
+    pull, pull_wall = timed(lambda: TE.run_program(g11, progs["WSP"],
+                                                   engine="pull"))
+    row = {"graph": f"uniform_graph({p11_n}, {p11_e}, seed={OGB_SEED})",
+           "n": p11_n, "e": e11, "graph_build_s": build_s,
+           "iterations": one.stats.iterations,
+           "push_iters": one.stats.push_iters,
+           "edge_work": one.stats.edge_work, "launches": one_l,
+           "wall_ms": one_wall, "warm_wall_ms": one_warm,
+           "pull_iterations": pull.stats.iterations,
+           "pull_edge_work": pull.stats.edge_work, "pull_wall_ms": pull_wall,
+           "pull_match": torch.equal(bits(one.value), bits(pull.value)),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log11("single", row)
+    if not row["pull_match"] or one.stats.iterations != \
+            pull.stats.iterations:
+        raise RuntimeError("phase 11: the cuda WSP answer differs from the "
+                           "pull engine's")
+    if not all(v > 0 for v in one_l.values()):
+        raise RuntimeError(f"phase 11: the cuda WSP query launched {one_l}")
+    p10_drop(g11)
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        rec = p11_record(multi_pod, e11)
+        k = mesh.device_count
+        part = partition_edges(g11, k)
+        flat = [getattr(part, f).reshape(-1) for f in
+                ("src", "dst", "weight", "capacity", "mask")]
+        fn, _ = AD.build_step(mesh, p11_n, e11)
+        # the state component the query answers with (WSP's capacity)
+        answer = [cr.idx for cr in fn.comps].index(
+            TF.plan_output(fn.plans[0]))
+        # the record's per-device argument bytes are shard 0's real inputs
+        args = dict(zip(AD.ARG_NAMES, (*flat, g11.out_deg)))
+        shard0 = sum((a if name == "out_deg" else a[:fn.e_loc]).nbytes
+                     for name, a in args.items() if name in fn.reads())
+        reset_peak()
+        work = []
+        (state, it), wall = timed(lambda: fn(*flat, g11.out_deg,
+                                             shard_work=work))
+        row = {"mesh": rec["mesh"], "shards": k, "n": p11_n, "e": e11,
+               "e_loc": fn.e_loc, "iterations": it,
+               "cuda_iterations": one.stats.iterations,
+               "pull_iterations": pull.stats.iterations,
+               "match_cuda": all(torch.equal(bits(a), bits(b))
+                                 for a, b in zip(state, one_state)),
+               "match_pull": torch.equal(bits(state[answer]),
+                                         bits(pull.value)),
+               "on_card": all(s.device.type == "cuda" for s in state),
+               "wall_ms": wall, "ms_per_iteration": wall / max(it, 1),
+               "shard_work_min": min(work), "shard_work_max": max(work),
+               "edge_work": sum(work), "pull_edge_work": pull.stats.edge_work,
+               "argument_bytes_per_shard": shard0,
+               "record_argument_bytes":
+                   rec["memory_analysis"]["argument_size_in_bytes"],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "phase_s": time.perf_counter() - t11}
+        log11("sharded", row)
+        if not (row["match_cuda"] and row["match_pull"] and row["on_card"]
+                and it == one.stats.iterations == pull.stats.iterations):
+            raise RuntimeError(f"phase 11 {rec['mesh']}: the {k}-shard step "
+                               "differs from the single-device cuda and "
+                               "pull answers")
+        if shard0 != row["record_argument_bytes"]:
+            raise RuntimeError(f"phase 11 {rec['mesh']}: shard 0 reads "
+                               f"{shard0} bytes, the record says "
+                               f"{row['record_argument_bytes']}")
+        if k == 256:
+            p11_profile(f"dry-run step {k} shards",
+                        lambda: fn(*flat, g11.out_deg))
+        del part, flat, args, state, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    del g11, one, one_state, pull
+    TE.clear_program_caches()
+    torch.cuda.empty_cache()
+    phase11_s = time.perf_counter() - t11
+    log(f"phase 11: {phase11_s:.1f} s, cuda WSP launches "
+        f"{json.dumps(one_l)}")
+    record["phase11"] = phase11_rows
+    record["phase11_s"] = phase11_s
+    record["phase11_launches"] = one_l
 
     # the contract's kernel line: times of the weighted-PageRank round with
     # every source active (the push− main path's shapes)

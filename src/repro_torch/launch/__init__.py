@@ -1,2 +1,4 @@
 """Launch drivers of the port: the continuous-batching analytics service
-(``service``) and its serving smoke (``analytics``)."""
+(``service``), its serving smoke (``analytics``) and the production-mesh
+dry-run of the analytics step (``analytics_dryrun``, over ``mesh`` and
+``dryrun``)."""

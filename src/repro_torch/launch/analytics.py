@@ -13,8 +13,10 @@ actually batched (queries_per_launch > 1).  Exit status is the contract.
 It runs on the CUDA card unless ``--device cpu`` asks for the plain
 versions of the kernels.
 
-``--dryrun`` (the production-mesh compile dry-run) belongs to the launch
-drivers of ROADMAP Queue 1 item 12 and is refused until they are ported.
+``--dryrun`` runs ``repro_torch.launch.analytics_dryrun`` in this process
+(the production-mesh dry-run record, built on the ``meta`` device); the
+arguments it does not know (``--multi-pod``, ``--out``, ``--n``, ``--e``)
+pass through to it.
 """
 from __future__ import annotations
 
@@ -75,13 +77,12 @@ def main(argv=None):
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain versions of the kernels)")
     ap.add_argument("--dryrun", action="store_true",
-                    help="the mesh compile dry-run (not ported yet)")
+                    help="run repro_torch.launch.analytics_dryrun")
     args, rest = ap.parse_known_args(argv)
 
     if args.dryrun:
-        raise SystemExit(
-            "--dryrun is not ported yet: the mesh compile dry-run comes with "
-            "the launch drivers of ROADMAP Queue 1, item 12")
+        from repro_torch.launch import analytics_dryrun
+        return analytics_dryrun.main(rest)
     if rest:
         ap.error(f"unrecognized arguments: {rest}")
     if not args.smoke:

@@ -1604,3 +1604,61 @@ def test_distributed_on_card_matches_pull(cuda_device):
         assert torch.equal(got.value, want.value), name
         assert got.stats.iterations == want.stats.iterations
         assert got.stats.shards == 4
+
+
+# ---------------------------------------------------------------------------
+# The analytics dry-run's step, run for real on the card.
+# ---------------------------------------------------------------------------
+
+
+def _dryrun_step_run(device):
+    """The dry-run's WSP step over ``ShardMesh.on(device, 4)`` on the
+    ``partition_edges`` blocks of RM-XS: (state bits, iterations, shard
+    work, the blocks on the host)."""
+    from repro_torch.graph.partition import ShardMesh, partition_edges
+    from repro_torch.launch import analytics_dryrun as AD
+    g = TS.rmat_graph(400, 3200, seed=11, device=device)
+    part = partition_edges(g, 4)
+    flat = [getattr(part, f).reshape(-1) for f in
+            ("src", "dst", "weight", "capacity", "mask")]
+    fn, _ = AD.build_step(ShardMesh.on(device, 4), g.n, g.num_edges)
+    work = []
+    state, it = fn(*flat, g.out_deg, shard_work=work)
+    assert {s.device.type for s in state} == {torch.device(device).type}
+    return ([_bits(s).cpu() for s in state], it, work,
+            [a.cpu() for a in flat])
+
+
+@pytest.mark.gpu
+def test_dryrun_step_on_card_matches_cpu(cuda_device):
+    """The step over 4 shards on the card is bitwise its run over 4 CPU
+    shards at RM-XS, with equal iterations and per-shard edge work."""
+    card = _dryrun_step_run(cuda_device)
+    cpu = _dryrun_step_run("cpu")
+    for a, b in zip(card[3], cpu[3]):
+        assert torch.equal(a, b)
+    assert card[1] == cpu[1] < 64
+    assert card[2] == cpu[2] and sum(card[2]) > 0
+    for a, b in zip(card[0], cpu[0]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_dryrun_record_allocates_nothing_on_card(cuda_device):
+    """Building both production meshes' records on ``meta`` leaves the
+    card's allocated memory unchanged; the production mesh defaults to the
+    card."""
+    from repro_torch.launch import analytics_dryrun as AD
+    from repro_torch.launch.dryrun import _mesh_tag
+    from repro_torch.launch.mesh import make_production_mesh
+    assert {d.type for d in make_production_mesh().devices} == {"cuda"}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for multi_pod, k in ((False, 256), (True, 512)):
+        rec = AD.build_record(
+            make_production_mesh(multi_pod=multi_pod, device="meta"),
+            AD.OGB_N, AD.OGB_E, _mesh_tag(multi_pod))
+        assert rec["devices"] == k
+        assert rec["collectives"]["all-reduce"]["count"] == 2
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before

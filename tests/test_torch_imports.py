@@ -2,8 +2,8 @@
 package (nor chip_smoke.py, nor the port's quickstart) imports ``jax`` or
 the JAX package ``repro``.  Both tests walk every file under
 ``src/repro_torch/``, ``launch/`` included: ``launch.analytics`` needs no
-guard at import time, since its ``--dryrun`` refuses without importing the
-reference's ``repro.launch.analytics_dryrun``."""
+guard at import time, since its ``--dryrun`` runs the port's own
+``repro_torch.launch.analytics_dryrun``, never the reference's."""
 import os
 import re
 import subprocess

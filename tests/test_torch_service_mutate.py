@@ -10,8 +10,8 @@ same edits and traces: equal ``metrics()`` but ``wall_*``, completion
 order, per-request scheduling fields and bitwise answers, each answer also
 bitwise a solo query on the graph that served it.  Then
 ``python -m repro_torch.launch.analytics --smoke --device cpu`` exits 0
-with the reference ``run_smoke``'s metrics, and ``--dryrun`` is refused
-(the launch drivers of ROADMAP Queue 1 item 12 are not ported).
+with the reference ``run_smoke``'s metrics (``--dryrun`` is held in
+``tests/test_torch_dryrun.py``).
 """
 import json
 import os
@@ -30,7 +30,6 @@ from repro_torch.core import engine as TE
 from repro_torch.core import fusion as TF
 from repro_torch.core import usecases as TU
 from repro_torch.graph import structure as TS
-from repro_torch.launch import analytics as TA
 from repro_torch.launch import service as TSV
 
 pytestmark = pytest.mark.service
@@ -188,12 +187,3 @@ def test_analytics_smoke_on_cpu_matches_reference():
     assert _no_wall(port) == _no_wall(ref)
     assert port["verified_bitwise"] == 24
 
-
-def test_analytics_dryrun_is_refused(monkeypatch):
-    monkeypatch.delitem(sys.modules, "repro.launch.analytics_dryrun",
-                        raising=False)
-    with pytest.raises(SystemExit, match="item 12"):
-        TA.main(["--dryrun"])
-    assert "repro.launch.analytics_dryrun" not in sys.modules
-    with pytest.raises(SystemExit):
-        TA.main([])                    # nothing to do
