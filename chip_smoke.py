@@ -220,6 +220,32 @@ libraries at once, into ``build/repro_torch/``), and then
    256-shard step once more under torch.profiler (device busy time, idle
    share).  Each line gives n, e′, iterations, the wall, the peak device
    memory, each shard's edge work (min / max) and the phase's seconds.
+12. serves the LM family through ``launch/serve.py``'s ``generate``
+   (greedy prefill, then batched decode into a power-of-two cache) with
+   random weights from a seeded generator on the card:
+   (a) llama3.2-3B at full width (``configs/llama3_2_3b.py``: 28 layers,
+   d 3072, vocab 128,256, bfloat16, 3.61 B parameters) at the reference
+   serve driver's defaults (batch 2, prompt 16, 8 tokens) and at batch 8,
+   prompt 512, 32 tokens (a cache of 1,024), each cold and warm with equal
+   ids: the prefill logits held against ``forward`` at the prompt's last
+   position and the last decode step against ``forward`` over the prompt
+   and the ids fed back, elementwise within 3e-2 + 3e-2·|forward| (the
+   reference's serve tests' bound), recorded in bfloat16 and required in
+   float32 (the same weights cast, 14.4 GB); (b) deepseek-v3 at full width
+   cut to depth 4 (its 3 dense layers, its first MoE layer of 256 experts,
+   top-8 and one shared, and the MTP head; 31.6 GB) at the defaults: the
+   same checks, the MoE layer's prefill routing (no expert keeps more than
+   its capacity, every token's gates sum to 1 within 1e-6), MLA's absorbed
+   decode against the expanded one from one prefilled cache within the
+   same bound, and the loss with its MTP term finite; (c)
+   ``flash_attention`` (``flash_sm90_kernel``) on (a)'s layer-0 prefill
+   q, k, v at batch 8 (S 512 over T 1,024 cache slots, causal from
+   position 0 for both) against the LM's own chunked attention, at the
+   bfloat16 flash tolerance, both timed with CUDA events (the model path
+   launches no kernel of the port: the reference's LM calls none).  Each
+   line gives prefill ms, decode ms per step, tokens per second (the
+   reference driver's: batch × tokens over the wall), the peak device
+   memory and the card.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -231,6 +257,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -285,6 +312,34 @@ RMXS_WSSSP = (8, 13703)
 INCR_SEED, INCR_FRAC = 7, 0.005
 # Phase 11's uniform graph at ogb_products' n and e (configs' GNN shape).
 OGB_SEED = 0
+# Phase 12: the LM's serving path against its own forward, elementwise
+# |Δ| <= atol + rtol·|forward| (the reference's own serve tests' bound);
+# deepseek-v3 cut to its 3 dense layers and first MoE layer, to fit one
+# card beside the MTP head (31.6 GB of bfloat16 weights).
+LM_TOL = (3e-2, 3e-2)
+P12_DEEPSEEK_LAYERS = 4
+# Decode against forward is required at llama's full width and depth in
+# float64: the random network of the reference's init amplifies a
+# rounding some 3e7-fold over 28 layers (phase 12's sensitivity line),
+# past LM_TOL in bfloat16 and float32 alike (recorded), and far inside it
+# in float64.
+# MLA's absorbed against expanded attention context (before the output
+# projection), one layer on the same bfloat16 inputs: both compute in
+# float32 and round once to bfloat16, so they differ by one bfloat16 step
+# of the element (2^-7 of it) plus the float32 difference of two
+# association orders.  Their logits hold no such bound in bfloat16 (the
+# MoE router's top-k is discontinuous, and three more layers amplify
+# the step): they are held to LM_TOL with the same weights in float32,
+# where the two decodes differ by association order alone.
+MLA_TOL = (2.0 ** -7, 1e-3)
+# Flash on the LM's layer-0 q, k, v: elementwise |Δ| <= atol + rtol·a,
+# the bfloat16 flash tolerance with a = Σ_t p_t·|v_t| (the attention of
+# |v|, float64) in place of |out|.  A weighted sum Σ_t p_t·v_t whose
+# weights each carry a relative error δ is off by at most δ·a; the
+# reference's init gives near one-hot weights over values of both signs,
+# where |out| falls far below a and an |out|-relative limit measures the
+# cancellation, not the kernel (recorded beside it).
+FLASH_LM_TOL = FLASH_TOL["bfloat16"]
 
 
 def log(*parts):
@@ -3093,6 +3148,399 @@ def main(argv) -> int:
     record["phase11_s"] = phase11_s
     record["phase11_launches"] = one_l
 
+    # ------------------------------------------------------------------
+    # Phase 12: the LM serving path (``models/``, ``launch/serve.py``) at
+    # full width.  (a) llama3.2-3B through ``serve.generate`` at the
+    # reference serve driver's defaults and at batch 8, prompt 512, each
+    # cold and warm in bfloat16, then (the same weights cast) in float32
+    # and float64; prefill held against ``forward`` in every dtype, decode
+    # against ``forward`` in float64 and recorded in the others beside
+    # the network's own sensitivity.  (b) deepseek-v3 at full width,
+    # depth 4 (its 3 dense layers, the first MoE layer, the MTP head):
+    # generate, the MoE layer's routing, MLA's absorbed decode against the
+    # expanded one (each layer's context in bfloat16, the logits in
+    # float32), the loss with its MTP term.  (c) ``flash_sm90_kernel`` on
+    # (a)'s layer-0 prefill q, k, v against the LM's own attention.
+    # ------------------------------------------------------------------
+    import repro_torch.configs as LMC
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import layers as LL
+    from repro_torch.models import transformer as LT
+    phase12_rows = []
+    t12 = time.perf_counter()
+
+    def log12(tag, row):
+        log(f"phase 12 {tag} " + json.dumps(row))
+        phase12_rows.append(dict(row, line=tag))
+
+    def lm_err(got, want, tol=LM_TOL):
+        """max |Δ| and its worst share of the limit atol + rtol·|want| for
+        ``tol`` = (rtol, atol), in float64; non-finite values fail."""
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError("phase 12: non-finite logits")
+        rtol, atol = tol
+        diff = (got.double() - want.double()).abs()
+        return float(diff.max()), float(
+            (diff / (atol + rtol * want.double().abs())).max())
+
+    def tensor_gb(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors) / 1e9
+
+    def lm_prompts(vocab, batch, prompt, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(0, vocab, (batch, prompt), generator=gen,
+                             device=dev)
+
+    def serve_run(model, label, batch, prompt, steps, seed, runs=2):
+        """``serve.generate`` ``runs`` times on one seeded prompt set (the
+        first run cold, all with equal ids), then the last run's prefill
+        logits against ``forward`` at the prompt's last position and its
+        last decode step against ``forward`` over the prompt and the ids
+        it fed back."""
+        prompts = lm_prompts(model.cfg.vocab, batch, prompt, seed)
+        max_seq = 1 << (prompt + steps - 1).bit_length()   # pow2 cache
+        walls, ids = [], []
+        for _ in range(runs):
+            cache = model.init_cache(batch, max_seq)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = SV.generate(model, prompts, steps, cache)
+            walls.append((res.prefill_s * 1e3, res.decode_s * 1e3))
+            peak = torch.cuda.max_memory_allocated()
+            ids.append(res.ids)
+        if not all(torch.equal(i, ids[0]) for i in ids):
+            raise RuntimeError(f"phase 12 {label}: a warm run's ids differ "
+                               "from the cold run's")
+        if res.ids.shape != (batch, steps) or res.ids.device.type != "cuda":
+            raise RuntimeError(f"phase 12 {label}: ids {res.ids.shape} on "
+                               f"{res.ids.device}")
+        with torch.no_grad():
+            full, _, _ = model(prompts)
+            pf = lm_err(res.prefill_logits, full[:, -1])
+            del full
+            full, _, _ = model(torch.cat([prompts, res.ids[:, :-1]], dim=1))
+            dc = lm_err(res.logits, full[:, -1])
+            del full
+        prefill_ms, decode_ms = walls[-1]
+        per_step = max(steps - 1, 1)
+        row = {"model": model.cfg.name, "layers": model.cfg.n_layers,
+               "dtype": model.cfg.dtype, "case": label, "batch": batch,
+               "prompt": prompt, "decode_steps": steps, "cache_len": max_seq,
+               "cache_gb": tensor_gb(cache.values()),
+               "prefill_ms": prefill_ms,
+               "decode_ms_per_step": decode_ms / per_step,
+               "tokens_per_s": batch * steps / (prefill_ms + decode_ms)
+               * 1e3,
+               "decode_tokens_per_s": batch * per_step / decode_ms * 1e3,
+               "cold_prefill_ms": walls[0][0],
+               "cold_decode_ms_per_step": walls[0][1] / per_step,
+               "peak_gb": peak / 1e9,
+               "prefill_vs_forward_max_abs_err": pf[0],
+               "prefill_vs_forward_worst_over_limit": pf[1],
+               "decode_vs_forward_max_abs_err": dc[0],
+               "decode_vs_forward_worst_over_limit": dc[1],
+               "ids_head": res.ids[0, :8].tolist(), "card": card}
+        if not pf[1] <= 1.0:
+            raise RuntimeError(f"phase 12 {model.cfg.name} {label}: prefill "
+                               f"{pf[1]} times the limit {LM_TOL} off "
+                               "forward")
+        return row
+
+    def layer_decode(model, batch, length, seed):
+        """Each layer's cached decode of the last of ``length`` seeded
+        tokens (a prefill of the others into the layer's cache, then one
+        step) against the layer's forward at that position, both on the
+        forward's own input to the layer: max |Δ| and worst share of
+        LM_TOL's limit over the layers."""
+        cfg = model.cfg
+        tokens = lm_prompts(cfg.vocab, batch, length, seed)
+        pos = torch.arange(length, device=dev)[None, :].expand(batch,
+                                                              length)
+        cache = model.init_cache(batch, 1 << (length - 1).bit_length())
+        worst = (0.0, 0.0)
+        with torch.no_grad():
+            x = model.embed[tokens].to(LL._dt(cfg))
+            for li, lp in enumerate(model.layers):
+                use_moe, glob = LT._layer_pattern(cfg, li)
+                chunk = None if glob else cfg.attn_chunk
+                c = {k: v[li] for k, v in cache.items()}
+                LT._layer_apply(cfg, lp, x[:, :-1], pos[:, :-1], chunk,
+                                use_moe, c, 0)
+                step, _, _ = LT._layer_apply(cfg, lp, x[:, -1:], pos[:, -1:],
+                                             chunk, use_moe, c, length - 1)
+                x, _, _ = LT._layer_apply(cfg, lp, x, pos, chunk, use_moe)
+                worst = max(worst, lm_err(step[:, 0], x[:, -1]),
+                            key=lambda e: e[1])
+        return {"layer_decode_vs_forward_max_abs_err": worst[0],
+                "layer_decode_vs_forward_worst_over_limit": worst[1]}
+
+    # (a) llama3.2-3B, full width
+    cfg_l = LMC.get("llama3.2-3b").full()
+    lm_sets = (("reference defaults", 2, 16, 8),
+               ("batch 8 prompt 512", 8, 512, 32))
+    torch.cuda.reset_peak_memory_stats()
+    llama, init_ms = timed(lambda: LT.init_params(
+        cfg_l, torch.Generator(device=dev).manual_seed(12), device=dev))
+    params = list(llama.parameters())
+    log12("llama3.2-3B weights", {
+        "params": sum(p.numel() for p in params),
+        "param_count": cfg_l.param_count(), "gb": tensor_gb(params),
+        "init_ms": init_ms, "layers": cfg_l.n_layers,
+        "d_model": cfg_l.d_model, "vocab": cfg_l.vocab, "card": card})
+    del params
+    for label, batch, prompt, steps in lm_sets:
+        log12("llama3.2-3B serve",
+              serve_run(llama, label, batch, prompt, steps, 120))
+    # (c) the flash kernel on layer 0's prefill q, k, v of the batch-8 set
+    # (T = 1024 cache slots, S = 512 written), against the LM's chunked
+    # attention on the same card tensors and both against the function's
+    # value (the plain version in float64 on the same bfloat16 inputs)
+    with torch.no_grad():
+        prompts = lm_prompts(cfg_l.vocab, 8, 512, 120)
+        lay0, dt_l = llama.layers[0], LL._dt(cfg_l)
+        b_, s_ = prompts.shape
+        pos = torch.arange(s_, device=dev)[None, :].expand(b_, s_)
+        h0 = LL.rms_norm(llama.embed[prompts].to(dt_l),
+                         lay0["ln1"].to(dt_l), cfg_l.norm_eps)
+        q0, k0, v0 = LL.gqa_qkv(cfg_l, lay0["attn"], h0, pos)
+        t_len = 1 << (512 + 32 - 1).bit_length()
+        kc = torch.zeros((b_, t_len) + tuple(k0.shape[2:]), dtype=dt_l,
+                         device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :s_], vc[:, :s_] = k0, v0
+        qf, kf, vf = (x.transpose(1, 2).contiguous() for x in (q0, kc, vc))
+
+        def lm_attention():
+            return LL._sdpa(q0, kc, vc, pos, None, dt_l,
+                            kv_chunk=cfg_l.kv_chunk, impl="chunked")
+
+        def flash():
+            return FA.flash_attention(qf, kf, vf, causal=True)
+        got, lm_out = flash(), lm_attention().transpose(1, 2)
+        exact = FA._flash_plain(qf.double(), kf.double(), vf.double(), True,
+                                None)
+        scale_a = FA._flash_plain(qf.double(), kf.double(),
+                                  vf.double().abs(), True, None)
+        torch.cuda.synchronize()
+        rtol, atol = FLASH_LM_TOL
+
+        def shares(x, y):
+            """Worst share of the weight-error limit atol + rtol·Σp|v|,
+            max |Δ|, and the worst share of the |out|-relative one."""
+            diff = (x.double() - y.double()).abs()
+            return (float((diff / (atol + rtol * scale_a)).max()),
+                    float(diff.max()),
+                    float((diff / (atol + rtol * y.double().abs())).max()))
+        pairs = {"flash_vs_lm": shares(got, lm_out),
+                 "flash_vs_float64": shares(got, exact),
+                 "lm_vs_float64": shares(lm_out, exact)}
+        flash_check = {
+            "case": f"llama3.2-3B layer-0 prefill q/k/v B={b_} S={s_} "
+                    f"T={t_len}",
+            "max_abs_err": pairs["flash_vs_lm"][1],
+            "worst_over_limit": pairs["flash_vs_lm"][0],
+            "vs_float64_worst_over_limit": pairs["flash_vs_float64"][0],
+            "lm_vs_float64_worst_over_limit": pairs["lm_vs_float64"][0],
+            **{f"{k}_max_abs_err": v[1] for k, v in pairs.items()},
+            "out_relative_worst_over_limit": {k: v[2]
+                                              for k, v in pairs.items()},
+            "logit_std": float((torch.einsum(
+                "bhsd,bhtd->bhst", qf[:1, :3, :64].float(),
+                kf[:1, :1, :64].float()) / math.sqrt(qf.shape[-1])).std()),
+            "v_max_abs": float(vf.float().abs().max()),
+            "tolerance": {"rtol": rtol, "atol": atol,
+                          "of": "attention of |v|, float64"},
+            "ms": time_ms(flash, 10), "lm_attention_ms":
+                time_ms(lm_attention, 5), "card": card}
+        log12("flash_sm90 on the LM's prefill", flash_check)
+        if not (flash_check["worst_over_limit"] <= 1.0
+                and flash_check["vs_float64_worst_over_limit"] <= 1.0):
+            raise RuntimeError(
+                f"phase 12: flash_sm90 on the LM's layer-0 q/k/v is "
+                f"{flash_check['worst_over_limit']} times its limit off "
+                f"the LM's attention and "
+                f"{flash_check['vs_float64_worst_over_limit']} off the "
+                f"float64 value")
+        del h0, q0, k0, v0, kc, vc, qf, kf, vf, got, lm_out, exact, scale_a
+    # the same in float32 from the same weights, and the network's own
+    # sensitivity: the float32 forward with the embedding table scaled by
+    # 1 + 1e-7·N(0, 1) elementwise
+    llama32 = llama.cast("float32")
+    del llama
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, batch, prompt, steps in lm_sets:
+        log12("llama3.2-3B float32 serve",
+              serve_run(llama32, label, batch, prompt, steps, 120, runs=1))
+    with torch.no_grad():
+        prompts = lm_prompts(cfg_l.vocab, 2, 16 + 8 - 1, 121)
+        base, _, _ = llama32(prompts)
+        saved = llama32.embed.detach().clone()
+        llama32.embed.mul_(1 + 1e-7 * torch.randn(
+            saved.shape, generator=torch.Generator(device=dev).manual_seed(
+                122), device=dev))
+        moved, _, _ = llama32(prompts)
+        llama32.embed.copy_(saved)
+        log12("llama3.2-3B float32 sensitivity", {
+            "case": "forward, embedding × (1 + 1e-7·N(0, 1))",
+            "max_abs_err": float((moved - base).abs().max()),
+            "logits_max_abs": float(base.abs().max()), "card": card})
+        del base, moved, saved
+    # decode against forward at full depth in float64 (the same weights
+    # cast once more): each layer's cached decode on both request sets,
+    # and end to end at the reference defaults (at batch 8 × 544 tokens
+    # even float64 rounding is amplified past LM_TOL: recorded)
+    llama64 = llama32.cast("float64")
+    del llama32
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, batch, prompt, steps in lm_sets:
+        row = serve_run(llama64, label, batch, prompt, steps, 120, runs=1)
+        row.update(layer_decode(llama64, batch, prompt + steps - 1, 123))
+        log12("llama3.2-3B float64 serve", row)
+        if not row["layer_decode_vs_forward_worst_over_limit"] <= 1.0 or (
+                label == lm_sets[0][0]
+                and not row["decode_vs_forward_worst_over_limit"] <= 1.0):
+            raise RuntimeError(
+                f"phase 12 llama3.2-3B float64 {label}: decode "
+                f"{row['decode_vs_forward_worst_over_limit']} times the "
+                f"limit {LM_TOL} off forward, a layer's decode "
+                f"{row['layer_decode_vs_forward_worst_over_limit']}")
+    del llama64
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) deepseek-v3, full width, depth 4
+    cfg_d = dataclasses.replace(LMC.get("deepseek-v3-671b").full(),
+                                n_layers=P12_DEEPSEEK_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    deep, init_ms = timed(lambda: LT.init_params(
+        cfg_d, torch.Generator(device=dev).manual_seed(13), device=dev))
+    params = list(deep.parameters())
+    moe_layers = [li for li in range(cfg_d.n_layers)
+                  if cfg_d.moe.is_moe_layer(li)]
+    log12("deepseek-v3 weights", {
+        "params": sum(p.numel() for p in params),
+        "param_count": cfg_d.param_count(), "gb": tensor_gb(params),
+        "init_ms": init_ms, "layers": cfg_d.n_layers,
+        "moe_layers": moe_layers, "experts": cfg_d.moe.n_experts,
+        "top_k": cfg_d.moe.top_k, "mtp": cfg_d.mtp, "card": card})
+    del params
+    row = serve_run(deep, "reference defaults", 2, 16, 8, 130)
+    prompts = lm_prompts(cfg_d.vocab, 2, 16, 130)
+    # a prefill with the MoE layer's routing caught; then, from its cache,
+    # one decode step absorbed ("auto" at one query) and expanded, their
+    # logits, and in every layer the attention context both ways on the
+    # absorbed step's own inputs
+    routes, route = [], LL.moe_route
+    mla_in = []
+    mla = LL.mla_attention
+
+    def spy_route(*args):
+        routes.append(route(*args))
+        return routes[-1]
+
+    def spy_mla(cfg, p, x, positions, chunk, cache=None, offset=None):
+        if x.shape[1] == 1:
+            mla_in.append((p, x, positions,
+                           {k: v.clone() for k, v in cache.items()}, offset))
+        return mla(cfg, p, x, positions, chunk, cache, offset)
+    with torch.no_grad():
+        cache = deep.init_cache(2, 32)
+        LL.moe_route = spy_route
+        try:
+            deep.prefill(prompts, cache)
+        finally:
+            LL.moe_route = route
+        if len(routes) != len(moe_layers):
+            raise RuntimeError(f"phase 12 deepseek-v3: {len(routes)} "
+                               f"routings for MoE layers {moe_layers}")
+        r = routes[0]
+        kept = torch.stack([
+            torch.bincount(top[keep], minlength=cfg_d.moe.n_experts)
+            for top, keep in zip(r.top.reshape(r.rank.shape), r.keep)])
+        gate_err = float((r.gate.sum(-1) - 1).abs().max())
+        row.update(cap=r.cap, assignments=int(r.keep.numel()),
+                   dropped=int((~r.keep).sum()),
+                   max_kept_per_expert=int(kept.max()),
+                   gate_sum_max_abs_err=gate_err)
+        if int(kept.max()) > r.cap or gate_err > 1e-6:
+            raise RuntimeError(f"phase 12 deepseek-v3: an expert kept "
+                               f"{int(kept.max())} > cap {r.cap} or the "
+                               f"gates sum to 1 ± {gate_err}")
+        tok = prompts[:, -1]
+        logits = {}
+        for mode in ("auto", "expanded"):
+            c = {k: v.clone() for k, v in cache.items()}
+            LL.mla_attention = spy_mla
+            try:
+                logits[mode], _ = deep.with_config(
+                    mla_decode=mode).decode_step(tok, prompts.shape[1], c)
+            finally:
+                LL.mla_attention = mla
+        # each layer's attention context (before ``wo``) on the absorbed
+        # run's own inputs and cache, absorbed and expanded
+        attn_err = []
+        for p, x, positions, c, offset in mla_in[:cfg_d.n_layers]:
+            q_nope, q_rope, c_new, kr_new = LL.mla_qkv(cfg_d, p, x,
+                                                       positions)
+            c["c_kv"][:, offset:offset + 1] = c_new
+            c["k_r"][:, offset:offset + 1] = kr_new
+            args = (cfg_d, p, q_nope, q_rope, c["c_kv"], c["k_r"],
+                    positions, LL._dt(cfg_d))
+            attn_err.append(lm_err(LL._mla_sdpa_absorbed(*args),
+                                   LL._mla_sdpa_chunked(*args), tol=MLA_TOL))
+        mla_logits = lm_err(logits["auto"], logits["expanded"])
+        batch = {"tokens": prompts, "targets": torch.roll(prompts, -1, 1)}
+        loss = float(deep.loss_fn(batch))
+        del cache, c, logits, r, routes, mla_in
+        # the same weights in float32, cast leaf by leaf (both models at
+        # once would not fit): the two decodes' logits from one prefill
+        torch.cuda.reset_peak_memory_stats()
+        for pname, prm in deep.named_parameters():
+            if not pname.endswith("router"):     # float32 already
+                prm.data = prm.data.float()
+        deep.cfg = dataclasses.replace(deep.cfg, dtype="float32",
+                                       param_dtype="float32")
+        gc.collect()
+        torch.cuda.empty_cache()
+        cache = deep.init_cache(2, 32)
+        deep.prefill(prompts, cache)
+        logits = {mode: deep.with_config(mla_decode=mode).decode_step(
+            tok, prompts.shape[1], {k: v.clone() for k, v in
+                                    cache.items()})[0]
+            for mode in ("auto", "expanded")}
+        mla_logits32 = lm_err(logits["auto"], logits["expanded"])
+        f32_peak = torch.cuda.max_memory_allocated()
+        del cache, logits
+    row.update(
+        mla_context_max_abs_err=max(e for e, _ in attn_err),
+        mla_context_worst_over_limit=max(w for _, w in attn_err),
+        mla_tolerance={"rtol": MLA_TOL[0], "atol": MLA_TOL[1]},
+        mla_logits_max_abs_err=mla_logits[0],
+        mla_logits_worst_over_limit=mla_logits[1],
+        float32_mla_logits_max_abs_err=mla_logits32[0],
+        float32_mla_logits_worst_over_limit=mla_logits32[1],
+        float32_peak_gb=f32_peak / 1e9,
+        loss_with_mtp=loss)
+    log12("deepseek-v3 serve", row)
+    if not row["mla_context_worst_over_limit"] <= 1.0 \
+            or not row["float32_mla_logits_worst_over_limit"] <= 1.0 \
+            or not math.isfinite(loss):
+        raise RuntimeError(f"phase 12 deepseek-v3: absorbed against "
+                           f"expanded MLA attention context "
+                           f"{row['mla_context_worst_over_limit']} times "
+                           f"the limit {MLA_TOL}, float32 logits "
+                           f"{row['float32_mla_logits_worst_over_limit']} "
+                           f"times {LM_TOL}, loss {loss}")
+    del deep
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase12_s = time.perf_counter() - t12
+    log(f"phase 12: {phase12_s:.1f} s")
+    record["phase12"] = phase12_rows
+    record["phase12_s"] = phase12_s
+
     # the contract's kernel line: times of the weighted-PageRank round with
     # every source active (the push− main path's shapes)
     ref_case = [c for c in cases if c["graph"] == "rmat16"
@@ -3161,6 +3609,12 @@ def main(argv) -> int:
                                        "bound_all_slots_ms")
                if key in c},
             "case": label})
+    # no model path launches flash; phase 12's check of it on the LM's
+    # own layer-0 prefill tensors goes beside its row
+    (flash_row,) = [k for k in kernels if k["name"] == "flash_sm90_kernel"]
+    flash_row["model_check"] = {k: flash_check[k] for k in (
+        "case", "max_abs_err", "worst_over_limit",
+        "vs_float64_worst_over_limit", "tolerance", "ms", "lm_attention_ms")}
     record["kernels"] = kernels
     try:
         out_dir.mkdir(exist_ok=True)

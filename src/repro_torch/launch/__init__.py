@@ -1,4 +1,4 @@
 """Launch drivers of the port: the continuous-batching analytics service
-(``service``), its serving smoke (``analytics``) and the production-mesh
+(``service``), its serving smoke (``analytics``), the production-mesh
 dry-run of the analytics step (``analytics_dryrun``, over ``mesh`` and
-``dryrun``)."""
+``dryrun``) and the LM serving driver (``serve``)."""

@@ -1662,3 +1662,57 @@ def test_dryrun_record_allocates_nothing_on_card(cuda_device):
         assert rec["collectives"]["all-reduce"]["count"] == 2
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == before
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path (models/, launch/serve.py) on the card
+# ---------------------------------------------------------------------------
+
+_LM_ARCHS = ["llama3.2-3b", "qwen2-72b", "yi-9b", "deepseek-v3-671b",
+             "llama4-maverick-400b-a17b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_lm_smoke_on_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """A smoke LM (float32) on the card against the CPU port with the same
+    weights: the prefill's logits and written cache, then a decode step's
+    logits and cache, allclose 1e-4 (full float32 products, TF32 off)."""
+    import copy
+
+    import repro_torch.configs as TCF
+    from repro_torch.models import transformer as TLM
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = TCF.get(arch).smoke()
+    cpu = TLM.init_params(cfg, torch.Generator().manual_seed(5),
+                          device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    assert card.device.type == "cuda"
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 17))).long()
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        cache = model.init_cache(2, 32)
+        t = toks.to(model.device)
+        lg, cache = model.prefill(t[:, :16], cache)
+        written = {k: v.clone() for k, v in cache.items()}
+        lg2, cache = model.decode_step(t[:, 16], 16, cache)
+        out[name] = [lg, written, lg2, cache]
+    for got, want in zip(out["card"], out["cpu"]):
+        pairs = ([(got[k], want[k]) for k in want] if isinstance(want, dict)
+                 else [(got, want)])
+        for g, w in pairs:
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "deepseek-v3-671b"])
+def test_serve_main_smoke_on_card(cuda_device, arch, capsys):
+    """``launch.serve`` at a smoke config on the card (no --device)."""
+    from repro_torch.launch import serve as TSV
+    assert TSV.main(["--smoke", "--arch", arch]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"[serve] arch={arch} batch=2 prompt=16 "
+                             "decoded=8 tokens/s=")
+    assert out[1].startswith("sampled token ids: [")

@@ -1,9 +1,11 @@
 """Import hygiene of the port: it imports without JAX, and no file of the
 package (nor chip_smoke.py, nor the port's quickstart) imports ``jax`` or
 the JAX package ``repro``.  Both tests walk every file under
-``src/repro_torch/``, ``launch/`` included: ``launch.analytics`` needs no
-guard at import time, since its ``--dryrun`` runs the port's own
-``repro_torch.launch.analytics_dryrun``, never the reference's."""
+``src/repro_torch/``, ``launch/``, ``models/`` and ``configs/`` included
+(the LM serving path's files are checked to be among them).
+``launch.analytics`` needs no guard at import time, since its
+``--dryrun`` runs the port's own ``repro_torch.launch.analytics_dryrun``,
+never the reference's."""
 import os
 import re
 import subprocess
@@ -43,10 +45,19 @@ _BAD = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|"
                   r"from\s+repro\b(?!_))", re.M)
 
 
+# The LM serving path's files, which the walk below must reach.
+LM_FILES = ["models/__init__.py", "models/layers.py", "models/transformer.py",
+            "launch/serve.py", "configs/__init__.py", "configs/llama3_2_3b.py",
+            "configs/qwen2_72b.py", "configs/yi_9b.py",
+            "configs/deepseek_v3_671b.py",
+            "configs/llama4_maverick_400b_a17b.py"]
+
+
 def test_no_jax_or_reference_imports_in_sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "examples" /
                                          "quickstart_torch.py"]
+    assert {PKG / f for f in LM_FILES} <= set(files)
     bad = []
     for f in files:
         for m in _BAD.finditer(f.read_text()):
