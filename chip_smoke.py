@@ -246,6 +246,26 @@ libraries at once, into ``build/repro_torch/``), and then
    line gives prefill ms, decode ms per step, tokens per second (the
    reference driver's: batch × tokens over the wall), the peak device
    memory and the card.
+13. runs the GNNs (``models/gnn.py``, ``data/graphs.py``) at their
+   ``full()`` configs in float32 with seeded random weights on the card:
+   (a) GAT (2 layers, 8 heads of 8) on ``cora_like()`` (n 2,708, d_in
+   1,433) and at ogb_products' n with phase 11's edges and
+   ``cora_batch``'s features (d_in 100); (b) MeshGraphNet (15 layers, d
+   128) on a 256 × 256 grid (``mesh_batch``), single-device and over 4
+   vertex-cut shards (``mgn_forward_dist``, outputs and loss against the
+   single device), then ``mgn_loss_dist`` over 32 shards of phase 11's
+   edges (pad 1.3, every edge landed); (c) EGNN (4 layers, d 64) and (d)
+   DimeNet (6 blocks, d 128) on 128 molecules × 30 atoms, EGNN's rotation
+   check (float64 at atol 1e-4, float32 at ``GNN_TOL``) and 4-shard
+   forward, DimeNet's rotation invariance (atol 1e-3).  Every forward runs
+   twice, bitwise equal, finite; the cora, grid and molecule forwards are
+   held against the same model cast to float64 within ``GNN_TOL``·(|x| +
+   max|x|).  (f) ``ops.ell_softmax`` on (a)'s ogb-sized layer-0 logits,
+   per head, laid into the in-layout, against the model's α within 1e-5 +
+   1e-5·|α| (the ``model_check`` of the ``softmax_kernel`` row; no GNN
+   launches a kernel, as the reference's call none).  Each line gives the
+   cold and warm forward ms, the loss, the peak device memory and the
+   card.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -340,6 +360,14 @@ MLA_TOL = (2.0 ** -7, 1e-3)
 # where |out| falls far below a and an |out|-relative limit measures the
 # cancellation, not the kernel (recorded beside it).
 FLASH_LM_TOL = FLASH_TOL["bfloat16"]
+# Phase 13: a GNN output against another computation of it (float64, a
+# rotation, shards), elementwise |Δ| <= GNN_TOL·(|x| + max|x|): relative to
+# the element and to the output's own scale (the random 15-layer MGN's
+# outputs reach ~1e3 on the grid).  The ogb_products-sized MGN runs on 32
+# vertex-cut shards of the one card (its single-device [e, 384] concat
+# alone would be 95 GB).
+GNN_TOL = 1e-4
+P13_SHARDS = 32
 
 
 def log(*parts):
@@ -3138,6 +3166,9 @@ def main(argv) -> int:
         del part, flat, args, state, fn
         gc.collect()
         torch.cuda.empty_cache()
+    # phase 13's GNNs run on the same edges, in their dst-sorted order
+    p13_src, p13_dst = (a.cpu().numpy() for a in (g11.by_dst.src,
+                                                   g11.by_dst.dst))
     del g11, one, one_state, pull
     TE.clear_program_caches()
     torch.cuda.empty_cache()
@@ -3541,6 +3572,416 @@ def main(argv) -> int:
     record["phase12"] = phase12_rows
     record["phase12_s"] = phase12_s
 
+    # ------------------------------------------------------------------
+    # Phase 13: the GNNs (``models/gnn.py``, ``data/graphs.py``) at their
+    # full() configs, float32, seeded random weights on the card.  (a) GAT
+    # on the cora-shaped graph and at ogb_products' n and e (phase 11's
+    # edges, ``cora_batch``'s features); (b) MeshGraphNet on a 256 × 256
+    # grid, single-device and over 4 vertex-cut shards, then its loss over
+    # 32 shards of the ogb_products-sized graph; (c) EGNN and (d) DimeNet
+    # on the molecule shape (128 molecules × 30 atoms), with the rotation
+    # checks.  Every forward runs twice, bitwise; outputs finite; the
+    # cora, grid and molecule forwards against the same model cast to
+    # float64.  (f) The ELL softmax kernel on (a)'s ogb-sized layer-0
+    # logits against the model's α (a check: the reference's GNNs call no
+    # kernel, and neither does the port's).
+    # ------------------------------------------------------------------
+    import repro_torch.configs as GC
+    from repro_torch.data import graphs as GD
+    from repro_torch.graph import segment as GS
+    from repro_torch.models import gnn as GN
+    phase13_rows = []
+    t13 = time.perf_counter()
+
+    def log13(tag, row):
+        log(f"phase 13 {tag} " + json.dumps(row))
+        phase13_rows.append(dict(row, line=tag))
+
+    def outs_of(out):
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
+    def gnn_share(got, want):
+        """The worst |Δ| as a share of GNN_TOL·(|want| + max|want|) (a
+        bound relative to each output's own scale), and the max |Δ|."""
+        diff = (got.double() - want.double()).abs()
+        mag = want.double().abs()
+        limit = GNN_TOL * (mag + mag.max())
+        return float((diff / limit).max()), float(diff.max())
+
+    def gnn_run(label, fn):
+        """``fn`` (a forward) twice, each timed to a synchronize (cold,
+        warm): the outputs bitwise equal and finite; with the peak device
+        memory of the pair."""
+        reset_peak()
+        out, cold = timed(fn)
+        again, warm = timed(fn)
+        outs, agains = outs_of(out), outs_of(again)
+        row = {"case": label, "cold_ms": cold, "warm_ms": warm,
+               "bitwise_repeat": all(torch.equal(bits(a), bits(b))
+                                     for a, b in zip(outs, agains)),
+               "finite": all(bool(torch.isfinite(o).all()) for o in outs),
+               "on_card": all(o.device.type == "cuda" for o in outs),
+               "shapes": [list(o.shape) for o in outs],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "card": card}
+        if not (row["bitwise_repeat"] and row["finite"] and row["on_card"]):
+            raise RuntimeError(f"phase 13 {label}: repeat bitwise "
+                               f"{row['bitwise_repeat']}, finite "
+                               f"{row['finite']}, on the card "
+                               f"{row['on_card']}")
+        del again, agains
+        return out, row
+
+    def f64_check(row, out, out64):
+        """The float32 forward against the float64 one (same weights cast):
+        required within GNN_TOL·(|x64| + max|x64|) elementwise."""
+        shares = [gnn_share(a, b) for a, b in zip(outs_of(out),
+                                                  outs_of(out64))]
+        row.update(f64_worst_over_limit=max(s[0] for s in shares),
+                   f64_max_abs_err=max(s[1] for s in shares),
+                   f64_scale=max(float(b.double().abs().max())
+                                 for b in outs_of(out64)))
+        if row["f64_worst_over_limit"] > 1.0:
+            raise RuntimeError(f"phase 13 {row['case']}: float32 against "
+                               f"float64 {row['f64_worst_over_limit']} "
+                               f"times the limit")
+
+    def gen13(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def p13_profile(label, fn):
+        """One more run of ``fn`` under torch.profiler: device busy time
+        against the wall, and the top device ops."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+        log13("profile", {
+            "label": label, "wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall),
+            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                              for e in top}, "card": card})
+
+    def f64(t):
+        return t.double() if t.is_floating_point() else t
+
+    # (a) GAT on the cora-shaped graph (full_graph_sm: n 2,708, d_in 1,433)
+    gat_cfg = GC.get("gat-cora").full()
+    gc_, gx_, gy_ = TS.cora_like(device=dev)
+    gsrc, gdst = gc_.by_dst.src, gc_.by_dst.dst
+    gat = GN.gat_init(gat_cfg, gen13(131), device=dev)
+    out, row = gnn_run("gat-cora cora_like",
+                       lambda: gat(gx_, gsrc, gdst, gc_.n))
+    row.update(n=gc_.n, e=int(gsrc.shape[0]), d_in=gat_cfg.d_in,
+               loss=float(gat.loss({"x": gx_, "src": gsrc, "dst": gdst,
+                                    "y": gy_})))
+    f64_check(row, out, gat.cast("float64")(gx_.double(), gsrc, gdst,
+                                             gc_.n))
+    log13("gat", row)
+    del gc_, gx_, gy_, gsrc, gdst, out
+
+    # ... at ogb_products' n and e: phase 11's uniform graph's edges (its
+    # dst-sorted order) with cora_batch's features and labels, d_in 100
+    # (the workload's replace(cfg, d_in=d_feat))
+    t0 = time.perf_counter()
+    ob = GD.cora_batch_on(p13_src, p13_dst, p11_n, d_feat=100,
+                          n_classes=gat_cfg.n_classes, seed=OGB_SEED,
+                          device=dev)
+    batch_s = time.perf_counter() - t0
+    gat_o = GN.gat_init(dataclasses.replace(gat_cfg, d_in=100), gen13(132),
+                        device=dev)
+    out, row = gnn_run("gat-cora ogb_products", lambda: gat_o(
+        ob["x"], ob["src"], ob["dst"], p11_n))
+    loss, loss_ms = timed(lambda: float(gat_o.loss(ob)))
+    row.update(n=p11_n, e=int(ob["src"].shape[0]), d_in=100, loss=loss,
+               loss_ms=loss_ms, batch_s=batch_s)
+    log13("gat", row)
+    del out
+    p13_profile("gat-cora ogb_products forward", lambda: gat_o(
+        ob["x"], ob["src"], ob["dst"], p11_n))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (f) the ELL softmax kernel on layer 0's logits, per head, laid into
+    # the graph's in-layout (row = dst, slot = the edge's rank among its
+    # dst's in-edges: to_blocked_ell's fill order), against the model's α
+    with torch.no_grad():
+        p0 = gat_o["layers"][0]
+        w0 = p0["w"]
+        h0 = (ob["x"] @ w0.reshape(w0.shape[0], -1)).view(
+            p11_n, *w0.shape[1:])
+        logits, alpha = GN.gat_attention(p0, h0, ob["src"], ob["dst"], p11_n)
+        del h0
+        g13 = TS.from_edges(p11_n, p13_src, p13_dst, validate=False,
+                            device=dev)
+        ell = TS.to_blocked_ell(g13)
+        rows = g13.by_dst.dst.long()
+        slots = TS._fill_order_slots(g13.by_dst.dst, p11_n)
+        placed = bool(torch.equal(ell.nbrs[rows, slots], g13.by_dst.src))
+        mask = ell.mask
+        del g13
+        model_ms = time_ms(lambda: GS.segment_softmax(
+            logits, ob["dst"], p11_n), 3)
+        worst, err, kernel_ms = 0.0, 0.0, []
+        scores = torch.zeros((ell.n_pad, ell.width), dtype=torch.float32,
+                             device=dev)
+        for head in range(logits.shape[1]):
+            scores[rows, slots] = logits[:, head]
+            SS.reset_launches()
+            got = SS.ell_softmax(scores, mask)
+            launched = SS.LAUNCHES["softmax"]
+            want = alpha[:, head]
+            diff = (got[rows, slots] - want).abs()
+            worst = max(worst, float((diff / (1e-5 + 1e-5 * want.abs()))
+                                     .max()))
+            err = max(err, float(diff.max()))
+            kernel_ms.append(time_ms(lambda: SS.ell_softmax(scores, mask),
+                                     5))
+            if launched != 1:
+                raise RuntimeError("phase 13: ell_softmax did not launch "
+                                   "its kernel on GAT's logits")
+        softmax_check = {
+            "case": f"gat-cora layer-0 logits, ogb_products n {p11_n} e "
+                    f"{int(ob['src'].shape[0])}, {logits.shape[1]} heads",
+            "max_abs_err": err, "worst_over_limit": worst,
+            "tolerance": {"rtol": 1e-5, "atol": 1e-5, "of": "model α"},
+            "layout": {"n_pad": ell.n_pad, "width": ell.width},
+            "slots_placed": placed,
+            "ms_per_head": statistics.median(kernel_ms),
+            "ms_all_heads": sum(kernel_ms),
+            "model_softmax_ms": model_ms, "card": card}
+        log13("ell_softmax on GAT's logits", softmax_check)
+        if worst > 1.0 or not placed:
+            raise RuntimeError(f"phase 13: ell_softmax on GAT's logits is "
+                               f"{worst} times 1e-5 + 1e-5·|α| off the "
+                               f"model's α (slots placed: {placed})")
+        del logits, alpha, scores, got, want, diff, ell, mask, rows, slots
+    del ob, gat_o
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) MeshGraphNet on a 256 × 256 grid: single-device and 4 shards
+    mgn_cfg = GC.get("meshgraphnet").full()
+    mgn = GN.mgn_init(mgn_cfg, gen13(133), device=dev)
+    mb = GD.mesh_batch(256, 256, d_node_in=mgn_cfg.d_node_in,
+                       d_edge_in=mgn_cfg.d_edge_in, d_out=mgn_cfg.d_out,
+                       device=dev)
+    mn = mb["node_x"].shape[0]
+    margs = (mb["node_x"], mb["edge_x"], mb["src"], mb["dst"], mn)
+    single, row = gnn_run("meshgraphnet grid 256x256", lambda: mgn(*margs))
+    single_loss = float(mgn.loss(mb))
+    row.update(n=mn, e=int(mb["src"].shape[0]), loss=single_loss,
+               ms_per_layer=row["warm_ms"] / mgn_cfg.n_layers)
+    f64_check(row, single, mgn.cast("float64")(
+        *(f64(a) if isinstance(a, torch.Tensor) else a for a in margs)))
+    log13("meshgraphnet", row)
+    host = {k: v.cpu().numpy() for k, v in mb.items()}
+    part = GD.dst_block_partition(host["src"], host["dst"], mn, 4, 1.3)
+    if int(part["mask"].sum()) != host["src"].shape[0]:
+        raise RuntimeError("phase 13: the grid's 4-block partition dropped "
+                           "edges")
+    mesh4 = ShardMesh.on(dev, 4)
+    shards = GD.shard_batch(host, part, ("node_x", "target"), ("edge_x",),
+                            devices=mesh4.devices)
+    dargs = [[s[k] for s in shards]
+             for k in ("node_x", "edge_x", "src", "dst", "emask")]
+    dist, row = gnn_run("meshgraphnet grid 256x256, 4 shards",
+                        lambda: torch.cat(GN.mgn_forward_dist(
+                            mgn_cfg, mgn, *dargs, mesh4)))
+    dist_loss = float(GN.mgn_loss_dist(mgn_cfg, mgn, shards, mesh4))
+    share, err = gnn_share(dist[:mn], single)
+    row.update(shards=4, e_pad=part["e_pad"], loss=dist_loss,
+               single_loss=single_loss,
+               loss_rel_err=abs(dist_loss - single_loss) / abs(single_loss),
+               vs_single_worst_over_limit=share, vs_single_max_abs_err=err,
+               ms_per_layer=row["warm_ms"] / mgn_cfg.n_layers)
+    log13("meshgraphnet", row)
+    if share > 1.0 or row["loss_rel_err"] > 1e-4:
+        raise RuntimeError(f"phase 13: 4-shard MGN against single-device: "
+                           f"outputs {share} times the limit, loss "
+                           f"{row['loss_rel_err']} relative")
+    del single, dist, shards, dargs, mb, margs
+
+    # ... its loss over 32 vertex-cut shards of the ogb_products-sized
+    # graph (pad 1.3 as the reference's partition), on one card; seeded
+    # random node / edge features and targets made on the card
+    t0 = time.perf_counter()
+    part = GD.dst_block_partition(p13_src, p13_dst, p11_n, P13_SHARDS, 1.3)
+    part_s = time.perf_counter() - t0
+    landed = int(part["mask"].sum())
+    if landed != len(p13_src):
+        raise RuntimeError(f"phase 13: the {P13_SHARDS}-block partition "
+                           f"holds {landed} of {len(p13_src)} edges")
+    n_loc, e_pad = part["n_loc"], part["e_pad"]
+    mesh_o = ShardMesh.on(dev, P13_SHARDS)
+    fg = gen13(134)
+    oshards = []
+    for j in range(P13_SHARDS):
+        oshards.append({
+            "node_x": torch.randn((n_loc, mgn_cfg.d_node_in), generator=fg,
+                                  device=dev),
+            "edge_x": torch.randn((e_pad, mgn_cfg.d_edge_in), generator=fg,
+                                  device=dev),
+            "target": torch.randn((n_loc, mgn_cfg.d_out), generator=fg,
+                                  device=dev),
+            "nmask": torch.arange(j * n_loc, (j + 1) * n_loc, device=dev)
+            < p11_n,
+            **{k: torch.from_numpy(part[m][j]).to(dev) for k, m in
+               (("src", "src"), ("dst", "dst"), ("emask", "mask"))}})
+    del part
+    # why the vertex-cut forwards drop the pads: shard 0's sum of a
+    # [e_pad, d] edge state with the pads kept (masked, the reference's
+    # form: every pad joins local destination 0's segment) against the
+    # same sum over its real edges only
+    with torch.no_grad():
+        s0 = oshards[0]
+        e0 = torch.randn((e_pad, mgn_cfg.d_hidden), generator=fg,
+                         device=dev)
+        real0 = int(s0["emask"].sum())
+        em0 = s0["emask"][:, None].to(e0.dtype)
+        kept = GS.segment_sum(e0 * em0, s0["dst"], n_loc)
+        dropped = GS.segment_sum(e0[:real0], s0["dst"][:real0], n_loc)
+        pads_row = {
+            "case": f"shard 0 of {P13_SHARDS}: sum of [e_pad, "
+                    f"{mgn_cfg.d_hidden}] into {n_loc} rows",
+            "e_pad": e_pad, "real_edges": real0,
+            "longest_segment_kept": int(torch.bincount(
+                s0["dst"].long()).max()),
+            "longest_segment_dropped": int(torch.bincount(
+                s0["dst"][:real0].long()).max()),
+            "kept_ms": time_ms(lambda: GS.segment_sum(
+                e0 * em0, s0["dst"], n_loc), 3),
+            "dropped_ms": time_ms(lambda: GS.segment_sum(
+                e0[:real0], s0["dst"][:real0], n_loc), 3),
+            "max_abs_diff": float((kept - dropped).abs().max()),
+            "card": card}
+        log13("pads", pads_row)
+        if not torch.allclose(kept, dropped, rtol=1e-5, atol=1e-5):
+            raise RuntimeError("phase 13: dropping the pads changed a sum")
+        del s0, e0, em0, kept, dropped
+
+    def mgn_ogb_loss():
+        return GN.mgn_loss_dist(mgn_cfg, mgn, oshards, mesh_o)
+    reset_peak()
+    lo1, cold = timed(mgn_ogb_loss)
+    lo2, warm = timed(mgn_ogb_loss)
+    row = {"case": f"meshgraphnet ogb_products, {P13_SHARDS} shards",
+           "n": p11_n, "e": len(p13_src), "shards": P13_SHARDS,
+           "n_loc": n_loc, "e_pad": e_pad, "edge_slots": P13_SHARDS * e_pad,
+           "partition_s": part_s, "cold_ms": cold, "warm_ms": warm,
+           "ms_per_layer": warm / mgn_cfg.n_layers, "loss": float(lo1),
+           "bitwise_repeat": bool(torch.equal(bits(lo1), bits(lo2))),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    log13("meshgraphnet", row)
+    if not (row["bitwise_repeat"] and math.isfinite(row["loss"])):
+        raise RuntimeError(f"phase 13: the {P13_SHARDS}-shard MGN loss is "
+                           f"{row['loss']}, repeat bitwise "
+                           f"{row['bitwise_repeat']}")
+    p13_profile(f"meshgraphnet ogb_products loss, {P13_SHARDS} shards",
+                mgn_ogb_loss)
+    del oshards, lo1, lo2, mgn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def rotation(th, dtype):
+        return torch.tensor([[math.cos(th), -math.sin(th), 0.0],
+                             [math.sin(th), math.cos(th), 0.0],
+                             [0.0, 0.0, 1.0]], dtype=dtype, device=dev)
+
+    # (c) EGNN on the molecule shape
+    egnn_cfg = GC.get("egnn").full()
+    egnn = GN.egnn_init(egnn_cfg, gen13(135), device=dev)
+    eb = GD.molecule_batch(n_graphs=128, n_atoms=30, device=dev)
+    en = eb["feats"].shape[0]
+    eargs = (eb["feats"], eb["coords"], eb["src"], eb["dst"], en)
+    (eout, ex), row = gnn_run("egnn molecule 128x30", lambda: egnn(*eargs))
+    egnn64 = egnn.cast("float64")
+    eargs64 = tuple(f64(a) if isinstance(a, torch.Tensor) else a
+                    for a in eargs)
+    e64 = egnn64(*eargs64)
+    row.update(n=en, e=int(eb["src"].shape[0]), loss=float(egnn.loss(eb)))
+    f64_check(row, (eout, ex), e64)
+    # the rotation check of the reference's tests, held in float64 (a
+    # float64 rotation) at its atol 1e-4 and in float32 at the float64
+    # check's limit; float32 against atol 1e-4 recorded
+    for dt, model_r, args_r, (o1, x1) in (
+            ("float32", egnn, eargs, (eout, ex)),
+            ("float64", egnn64, eargs64, e64)):
+        rot = rotation(0.7, getattr(torch, dt))
+        o2, x2 = model_r(args_r[0], args_r[1] @ rot.T, *args_r[2:])
+        d_out = float((o1 - o2).abs().max())
+        d_x = float((x1 @ rot.T - x2).abs().max())
+        row[f"rotation_{dt}"] = {
+            "out_max_abs_err": d_out, "coords_max_abs_err": d_x,
+            "worst_over_limit": max(gnn_share(o2, o1)[0],
+                                    gnn_share(x2, x1 @ rot.T)[0])}
+    row["rotation_float64"]["within_atol_1e-4"] = \
+        max(row["rotation_float64"]["out_max_abs_err"],
+            row["rotation_float64"]["coords_max_abs_err"]) <= 1e-4
+    # four vertex-cut shards against the single-device forward
+    host = {k: v.cpu().numpy() for k, v in eb.items()
+            if isinstance(v, torch.Tensor)}
+    part = GD.dst_block_partition(host["src"], host["dst"], en, 4, 1.3)
+    if int(part["mask"].sum()) != host["src"].shape[0]:
+        raise RuntimeError("phase 13: the molecules' 4-block partition "
+                           "dropped edges")
+    shards = GD.shard_batch(host, part, ("feats", "coords"),
+                            devices=mesh4.devices)
+    do, dx = GN.egnn_forward_dist(
+        egnn_cfg, egnn, *([s[k] for s in shards] for k in
+                          ("feats", "coords", "src", "dst", "emask")), mesh4)
+    row["vs_4_shards_worst_over_limit"] = max(
+        gnn_share(torch.cat(do)[:en], eout)[0],
+        gnn_share(torch.cat(dx)[:en], ex)[0])
+    log13("egnn", row)
+    if not (row["rotation_float64"]["within_atol_1e-4"]
+            and row["rotation_float32"]["worst_over_limit"] <= 1.0
+            and row["vs_4_shards_worst_over_limit"] <= 1.0):
+        raise RuntimeError(f"phase 13: EGNN's rotation check or its 4-shard "
+                           f"forward failed: {json.dumps(row)}")
+    del egnn, egnn64, eb, eargs, eargs64, e64, eout, ex, shards, do, dx
+
+    # (d) DimeNet on the molecule shape (n_species 16)
+    dn_cfg = GC.get("dimenet").full()
+    dn = GN.dimenet_init(dn_cfg, gen13(136), device=dev)
+    t0 = time.perf_counter()
+    db = GD.molecule_batch(n_graphs=128, n_atoms=30,
+                           n_species=dn_cfg.n_species, device=dev)
+    batch_s = time.perf_counter() - t0
+    dargs = [db["species"], db["coords"], db["src"], db["dst"], db["t_kj"],
+             db["t_ji"], db["species"].shape[0]]
+    dout, row = gnn_run("dimenet molecule 128x30", lambda: dn(*dargs))
+    cos = GN.dimenet_geometry(dn_cfg, db["coords"], db["src"], db["dst"],
+                              db["t_kj"], db["t_ji"])[2]
+    row.update(n=dargs[-1], e=int(db["src"].shape[0]),
+               wedges=int(db["t_kj"].shape[0]), batch_s=batch_s,
+               worst_abs_cos=float(cos.abs().max()),
+               loss=float(dn.loss(db)))
+    f64_check(row, dout, dn.cast("float64")(
+        *(f64(a) if isinstance(a, torch.Tensor) else a for a in dargs)))
+    rargs = list(dargs)
+    rargs[1] = db["coords"] @ rotation(1.1, torch.float32).T
+    row["rotation_max_abs_err"] = float((dn(*rargs) - dout).abs().max())
+    log13("dimenet", row)
+    if row["rotation_max_abs_err"] > 1e-3:
+        raise RuntimeError(f"phase 13: DimeNet's outputs move by "
+                           f"{row['rotation_max_abs_err']} under a rotation")
+    del dn, db, dargs, rargs, dout, cos
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase13_s = time.perf_counter() - t13
+    log(f"phase 13: {phase13_s:.1f} s")
+    record["phase13"] = phase13_rows
+    record["phase13_s"] = phase13_s
+
     # the contract's kernel line: times of the weighted-PageRank round with
     # every source active (the push− main path's shapes)
     ref_case = [c for c in cases if c["graph"] == "rmat16"
@@ -3615,6 +4056,11 @@ def main(argv) -> int:
     flash_row["model_check"] = {k: flash_check[k] for k in (
         "case", "max_abs_err", "worst_over_limit",
         "vs_float64_worst_over_limit", "tolerance", "ms", "lm_attention_ms")}
+    # nor the softmax: phase 13's check of it on GAT's own layer-0 logits
+    (softmax_row,) = [k for k in kernels if k["name"] == "softmax_kernel"]
+    softmax_row["model_check"] = {k: softmax_check[k] for k in (
+        "case", "max_abs_err", "worst_over_limit", "tolerance",
+        "ms_per_head", "ms_all_heads", "model_softmax_ms")}
     record["kernels"] = kernels
     try:
         out_dir.mkdir(exist_ok=True)

@@ -1,22 +1,23 @@
-"""Architecture registry of the port: the five LM architectures and the
-paper's own analytics workload, each selectable via ``--arch <id>``.
+"""Architecture registry of the port: the five LM architectures, the four
+GNNs and the paper's own analytics workload, each selectable via
+``--arch <id>``.
 
 Each arch module exposes ``full()`` (the exact published config) and
 ``smoke()`` (a reduced same-family config for CPU tests), field for field
 the reference's (``repro.configs``), plus the family tag that picks the
-model code and the shape set.  The reference's GNN (dimenet,
-meshgraphnet, egnn, gat-cora) and recsys (dlrm-rm2) entries join with
-their models in the next parts of the ML stack (ROADMAP Queue 1, item
-12c); until then ``get`` raises ``KeyError`` for them, and ``ASSIGNED``
-lists what is registered.  The shape sets are the reference's, all three
-families.
+model code and the shape set.  Only the reference's recsys entry
+(dlrm-rm2) is still missing: it joins with its model in the next part of
+the ML stack (ROADMAP Queue 1, item 12c); until then ``get`` raises the
+reference's ``KeyError`` for it, and ``ASSIGNED`` lists what is
+registered.  The shape sets are the reference's, all three families.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (deepseek_v3_671b, grafs_analytics,
-                                 llama3_2_3b, llama4_maverick_400b_a17b,
+from repro_torch.configs import (deepseek_v3_671b, dimenet, egnn,
+                                 gat_cora, grafs_analytics, llama3_2_3b,
+                                 llama4_maverick_400b_a17b, meshgraphnet,
                                  qwen2_72b, yi_9b)
 
 # ---------------------------------------------------------------------------
@@ -80,6 +81,10 @@ ARCHS = {
                                   deepseek_v3_671b),
     "llama4-maverick-400b-a17b": ArchEntry(
         "llama4-maverick-400b-a17b", "lm", "lm", llama4_maverick_400b_a17b),
+    "dimenet": ArchEntry("dimenet", "gnn", "dimenet", dimenet),
+    "meshgraphnet": ArchEntry("meshgraphnet", "gnn", "mgn", meshgraphnet),
+    "egnn": ArchEntry("egnn", "gnn", "egnn", egnn),
+    "gat-cora": ArchEntry("gat-cora", "gnn", "gat", gat_cora),
     "grafs-analytics": ArchEntry("grafs-analytics", "analytics", "grafs",
                                  grafs_analytics),
 }

@@ -11,7 +11,9 @@ Float sums never use atomics: a float ``sum``/``prod`` segment reduction
 sorts by segment (stable) and reduces each contiguous segment with
 ``torch.segment_reduce``, so its order is fixed run to run on the card.
 Min/max reductions and integer sums are exact in any order, so they go
-through ``scatter_reduce``.
+through ``scatter_reduce``.  Every reduction takes rows: ``data`` [e, ...]
+reduces into [num_segments, ...] (``segment_sum`` is the GNNs' message sum;
+``segment_softmax`` normalises each column of [e, H] per segment).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import torch
 INT_INF = np.iinfo(np.int32).max // 2
 
 _TORCH_TO_NP = {torch.int32: np.int32, torch.float32: np.float32,
-                torch.bool: np.bool_, torch.int64: np.int64}
+                torch.float64: np.float64, torch.bool: np.bool_,
+                torch.int64: np.int64}
 
 
 def _np_dtype(dtype):
@@ -54,9 +57,10 @@ def identity(op: str, dtype):
 
 
 def _sorted_segment(op: str, data, segment_ids, num_segments: int):
-    """Deterministic float sum/prod: stable sort by segment, then one
-    ``segment_reduce`` over the contiguous runs (empty segments read the
-    identity)."""
+    """Deterministic float sum/prod of the rows of ``data``: stable sort by
+    segment (skipped, with its copy of ``data``, where the ids are already
+    sorted), then one ``segment_reduce`` along axis 0 over the contiguous
+    runs (empty segments read the identity)."""
     ids = segment_ids.long()
     if ids.numel() > 1 and bool((ids[1:] < ids[:-1]).any()):
         perm = torch.sort(ids, stable=True).indices
@@ -67,36 +71,45 @@ def _sorted_segment(op: str, data, segment_ids, num_segments: int):
                                 initial=float(identity(op, data.dtype)))
 
 
+def segment_sum(data, segment_ids, num_segments: int):
+    """Float rows ``data`` [e, ...] summed per segment into
+    [num_segments, ...] in the fixed order (``_sorted_segment``); an empty
+    segment reads 0."""
+    if not data.dtype.is_floating_point:
+        raise TypeError(f"segment_sum sums float rows, got {data.dtype}")
+    return _sorted_segment("sum", data, segment_ids, num_segments)
+
+
 def segment_reduce(op: str, data, segment_ids, num_segments: int):
-    """Pull-side reduction: dst-keyed segment reduce with identity fill."""
+    """Pull-side reduction: dst-keyed segment reduce with identity fill,
+    rows ``data`` [e, ...] into [num_segments, ...]."""
     if op in ("or", "and"):
         out = segment_reduce("max" if op == "or" else "min",
                              data.to(torch.int32), segment_ids, num_segments)
         return out.to(data.dtype)
-    init = torch.full((num_segments,), identity(op, data.dtype).item(),
-                      dtype=data.dtype, device=data.device)
+    init = torch.full((num_segments, *data.shape[1:]),
+                      identity(op, data.dtype).item(), dtype=data.dtype,
+                      device=data.device)
     return scatter_reduce(op, init, data, segment_ids)
 
 
 def scatter_reduce(op: str, init, data, segment_ids):
-    """Push-side reduction: ``init.at[ids].op(data)``.  ``init`` must already
-    hold current values (idempotent path) or identities (non-idempotent)."""
+    """Push-side reduction: ``init.at[ids].op(data)`` over rows (``ids``
+    [e], ``data`` [e, ...]).  ``init`` must already hold current values
+    (idempotent path) or identities (non-idempotent)."""
     ids = segment_ids.long()
-    if op in ("min", "max"):
-        return init.clone().scatter_reduce_(0, ids, data.to(init.dtype),
-                                            "a" + op, include_self=True)
-    if op in ("or", "and"):
-        red = "amax" if op == "or" else "amin"
-        return init.clone().scatter_reduce_(0, ids, data.to(init.dtype), red,
-                                            include_self=True)
-    if op in ("sum", "prod"):
-        if not init.dtype.is_floating_point:
-            # integer sums/products are exact in any order
-            return init.clone().scatter_reduce_(0, ids, data.to(init.dtype),
-                                                op, include_self=True)
+    if op in ("sum", "prod") and init.dtype.is_floating_point:
         part = _sorted_segment(op, data.to(init.dtype), ids, init.shape[0])
         return init + part if op == "sum" else init * part
-    raise ValueError(f"unknown reduction {op}")
+    if op not in _MONOIDS:
+        raise ValueError(f"unknown reduction {op}")
+    # min/max/or/and, and integer sums/products, are exact in any order;
+    # scatter_reduce_ takes one index per element of ``data``
+    ids = ids.view(-1, *(1,) * (data.dim() - 1)).expand(data.shape)
+    red = {"min": "amin", "max": "amax", "or": "amax", "and": "amin"}.get(
+        op, op)
+    return init.clone().scatter_reduce_(0, ids, data.to(init.dtype), red,
+                                        include_self=True)
 
 
 def combine(op: str, a, b):
@@ -140,7 +153,8 @@ def psum_like(op: str, parts, mesh) -> list:
 
 
 def segment_softmax(scores, segment_ids, num_segments: int):
-    """Numerically-stable per-segment softmax (GAT edge attention)."""
+    """Numerically-stable per-segment softmax (GAT edge attention): each
+    column of ``scores`` [e] or [e, H] normalised over its segment."""
     ids = segment_ids.long()
     smax = segment_reduce("max", scores, segment_ids, num_segments)
     ex = torch.exp(scores - smax[ids])

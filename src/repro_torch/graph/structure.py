@@ -864,6 +864,17 @@ def grid_graph(rows: int, cols: int, seed: int = 0, device=None) -> Graph:
     return from_edges(rows * cols, src, dst, w, w, device=device)
 
 
+def cora_like(n: int = 2708, e: int = 10556, d_feat: int = 1433,
+              seed: int = 0, device=None):
+    """Cora-shaped citation graph + features + labels (synthetic, seeded):
+    the graph, x [n, d_feat] float32 and y [n] int32, all on ``device``."""
+    g = uniform_graph(n, e + e // 4, seed=seed, weighted=False, device=device)
+    rng = np.random.default_rng(seed + 1)
+    x = (rng.random((n, d_feat)) < 0.012).astype(np.float32)  # bag-of-words
+    y = rng.integers(0, 7, size=n).astype(np.int32)
+    return g, _to(x, g.device), _to(y, g.device)
+
+
 def undirected(g: Graph) -> Graph:
     """Symmetrize: add reverse edges, deduplicated (CC assumes undirected
     graphs)."""

@@ -39,13 +39,16 @@ from repro_torch.models.layers import LMConfig
 
 class Params(nn.Module):
     """A named parameter set, indexed like the reference's dicts
-    (``p["wq"]``, ``"bq" in p``); a nested dict becomes a nested set."""
+    (``p["wq"]``, ``"bq" in p``); a nested dict becomes a nested set, a
+    list of dicts a ``ModuleList`` of sets."""
 
     def __init__(self, tree: dict):
         super().__init__()
         for name, leaf in tree.items():
             if isinstance(leaf, dict):
                 self.add_module(name, Params(leaf))
+            elif isinstance(leaf, list):
+                self.add_module(name, nn.ModuleList(Params(x) for x in leaf))
             else:
                 self.register_parameter(
                     name, nn.Parameter(leaf, requires_grad=False))

@@ -1716,3 +1716,111 @@ def test_serve_main_smoke_on_card(cuda_device, arch, capsys):
     assert out[0].startswith(f"[serve] arch={arch} batch=2 prompt=16 "
                              "decoded=8 tokens/s=")
     assert out[1].startswith("sampled token ids: [")
+
+
+# ---------------------------------------------------------------------------
+# The GNNs (models/gnn.py, data/graphs.py) on the card
+# ---------------------------------------------------------------------------
+
+_GNN_ARCHS = ["gat-cora", "egnn", "meshgraphnet", "dimenet"]
+
+
+def _gnn_case(arch, device):
+    """A smoke GNN (seeded weights) and its batch from the port's own
+    generators, on ``device``: (model, forward args, batch)."""
+    import repro_torch.configs as TCF
+    from repro_torch.data import graphs as TDG
+    from repro_torch.models import gnn as TGN
+    entry = TCF.get(arch)
+    cfg = entry.smoke()
+    init = {"gat": TGN.gat_init, "egnn": TGN.egnn_init,
+            "mgn": TGN.mgn_init, "dimenet": TGN.dimenet_init}[entry.kind]
+    model = init(cfg, torch.Generator().manual_seed(5), device="cpu") \
+        .to_device(device)
+    if entry.kind == "gat":
+        b = TDG.cora_batch(n=64, e=256, d_feat=cfg.d_in, seed=3,
+                           device=device)
+        return model, (b["x"], b["src"], b["dst"], 64), b
+    if entry.kind == "mgn":
+        b = TDG.mesh_batch(rows=6, cols=6, d_node_in=cfg.d_node_in,
+                           d_edge_in=cfg.d_edge_in, d_out=cfg.d_out, seed=3,
+                           device=device)
+        return model, (b["node_x"], b["edge_x"], b["src"], b["dst"],
+                       b["node_x"].shape[0]), b
+    b = TDG.molecule_batch(n_graphs=2, n_atoms=8, n_species=16, seed=3,
+                           device=device)
+    n = b["species"].shape[0]
+    if entry.kind == "egnn":
+        return model, (b["feats"], b["coords"], b["src"], b["dst"], n), b
+    return model, (b["species"], b["coords"], b["src"], b["dst"],
+                   b["t_kj"], b["t_ji"], n), b
+
+
+def _flat(out):
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", _GNN_ARCHS)
+def test_gnn_smoke_on_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """A smoke GNN (float32) on the card against the CPU port with the same
+    weights and inputs: forward outputs (EGNN's coordinates too) and loss
+    allclose 1e-4 (full float32 products, TF32 off), and two runs on the
+    card bitwise equal (fixed-order segment sums, no atomics)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu, cpu_args, cpu_b = _gnn_case(arch, "cpu")
+    card, args, b = _gnn_case(arch, cuda_device)
+    assert card.device.type == "cuda"
+    want = _flat(cpu(*cpu_args))
+    got = _flat(card(*args))
+    again = _flat(card(*args))
+    for g, a, w in zip(got, again, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(card.loss(b).cpu(), cpu.loss(cpu_b),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["meshgraphnet", "egnn"])
+def test_gnn_vertex_cut_on_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """The 2-shard vertex-cut forward on the card (``ShardMesh.on(card,
+    2)``) against the same on the CPU and the card's single-device
+    forward, allclose 1e-4; two runs bitwise equal."""
+    from repro_torch.data import graphs as TDG
+    from repro_torch.graph.partition import ShardMesh
+    from repro_torch.models import gnn as TGN
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    fwd, nodes, edges = {
+        "meshgraphnet": (TGN.mgn_forward_dist, ("node_x", "target"),
+                         ("edge_x",)),
+        "egnn": (TGN.egnn_forward_dist, ("feats", "coords"), ())}[arch]
+    keys = nodes[:1] + (("edge_x",) if edges else ("coords",)) + \
+        ("src", "dst", "emask")
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        model, args, b = _gnn_case(arch, dev)
+        n = args[-1]
+        host = {k: v.cpu().numpy() for k, v in b.items()
+                if isinstance(v, torch.Tensor)}
+        part = TDG.dst_block_partition(host["src"], host["dst"], n, 2, 2.0)
+        assert int(part["mask"].sum()) == host["src"].shape[0]
+        mesh = ShardMesh.on(dev, 2)
+        shards = TDG.shard_batch(host, part, nodes, edges,
+                                 devices=mesh.devices)
+        run = [_flat(fwd(model.cfg, model, *([s[k] for s in shards]
+                                             for k in keys), mesh))
+               for _ in range(2)]
+        outs[str(dev)] = [torch.cat(o)[:n] for o in run[0]]
+        if dev != "cpu":
+            for a, c in zip(run[0], run[1]):
+                assert all(torch.equal(x.view(torch.int32),
+                                       y.view(torch.int32))
+                           for x, y in zip(a, c))
+            single = _flat(model(*args))
+            for g, s in zip(outs[str(dev)], single):
+                torch.testing.assert_close(g, s, rtol=1e-4, atol=1e-4)
+    for g, w in zip(outs[str(cuda_device)], outs["cpu"]):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)

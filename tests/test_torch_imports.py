@@ -1,8 +1,9 @@
 """Import hygiene of the port: it imports without JAX, and no file of the
 package (nor chip_smoke.py, nor the port's quickstart) imports ``jax`` or
 the JAX package ``repro``.  Both tests walk every file under
-``src/repro_torch/``, ``launch/``, ``models/`` and ``configs/`` included
-(the LM serving path's files are checked to be among them).
+``src/repro_torch/``, ``launch/``, ``models/``, ``configs/`` and ``data/``
+included (the LM serving path's and the GNNs' files are checked to be
+among them).
 ``launch.analytics`` needs no guard at import time, since its
 ``--dryrun`` runs the port's own ``repro_torch.launch.analytics_dryrun``,
 never the reference's."""
@@ -51,13 +52,17 @@ LM_FILES = ["models/__init__.py", "models/layers.py", "models/transformer.py",
             "configs/qwen2_72b.py", "configs/yi_9b.py",
             "configs/deepseek_v3_671b.py",
             "configs/llama4_maverick_400b_a17b.py"]
+# The GNNs' files and their data path.
+GNN_FILES = ["models/gnn.py", "data/__init__.py", "data/graphs.py",
+             "graph/sampler.py", "configs/gat_cora.py", "configs/egnn.py",
+             "configs/meshgraphnet.py", "configs/dimenet.py"]
 
 
 def test_no_jax_or_reference_imports_in_sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "examples" /
                                          "quickstart_torch.py"]
-    assert {PKG / f for f in LM_FILES} <= set(files)
+    assert {PKG / f for f in LM_FILES + GNN_FILES} <= set(files)
     bad = []
     for f in files:
         for m in _BAD.finditer(f.read_text()):
