@@ -266,6 +266,27 @@ libraries at once, into ``build/repro_torch/``), and then
    launches a kernel, as the reference's call none).  Each line gives the
    cold and warm forward ms, the loss, the peak device memory and the
    card.
+14. runs DLRM RM2 (``models/dlrm.py``) at ``full()`` (26 tables of
+   4,000,000 × 64, 26.62 GB of float32 drawn on the card one table at a
+   time) with seeded random weights and ``dlrm_batch`` inputs: (a)
+   ``serve_p99`` (B 512) and (b) ``serve_bulk`` (B 262,144), forward and
+   loss, each held against float64 MLPs over the same float32 tables
+   (the gather is exact) within ``GNN_TOL``·(|x| + max|x|); (c)
+   ``retrieval_cand``, one query against 1,000,000 candidates, the scores
+   against ``user_vector @ cand.T`` (atol 1e-5) and their top 10; (d) K =
+   8 multi-hot at B 65,536, then ``embedding_bag`` on each of the 26
+   tables (a contiguous view) with the field's ids against the model's
+   lookup within 8·2^-24·Σ|rows|, and at K = 1 on (b)'s ids bitwise the
+   single-hot gather (the ``model_check`` of the ``bag_kernel`` row; the
+   model launches no kernel, as the reference's calls none); (e)
+   bfloat16 tables at ``serve_bulk`` (the float32 tables freed first)
+   against the float32 forward over the same tables rounded (lookup
+   bitwise, logits within the float64 check's limit).  Every forward runs
+   twice, bitwise equal, finite.  Each line gives the cold and warm
+   forward ms, its device ms and its four stages' (CUDA events; beside
+   (b) a profile of the same forward), the loss, the achieved TFLOP/s
+   (the reference workloads' dense FLOPs: 1,613,440 an example), the peak
+   device memory and the card.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -368,6 +389,18 @@ FLASH_LM_TOL = FLASH_TOL["bfloat16"]
 # alone would be 95 GB).
 GNN_TOL = 1e-4
 P13_SHARDS = 32
+
+
+def dlrm_dense_flops(cfg) -> int:
+    """The dense FLOPs of one DLRM example, the reference's own count
+    (``src/repro/launch/workloads.py`` ``_dlrm_dense_flops``): the two
+    MLPs' products and the interaction's z zᵀ; 1,613,440 at RM2's full
+    size."""
+    bot = sum(2 * a * b for a, b in zip(cfg.bot_mlp[:-1], cfg.bot_mlp[1:]))
+    dims = [cfg.d_interact] + list(cfg.top_mlp_hidden)
+    top = sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+    inter = 2 * cfg.n_feats * cfg.n_feats * cfg.embed_dim
+    return bot + top + inter
 
 
 def log(*parts):
@@ -3649,7 +3682,7 @@ def main(argv) -> int:
     def gen13(seed):
         return torch.Generator(device=dev).manual_seed(seed)
 
-    def p13_profile(label, fn):
+    def p13_profile(label, fn, log_row=log13):
         """One more run of ``fn`` under torch.profiler: device busy time
         against the wall, and the top device ops."""
         from torch.autograd import DeviceType
@@ -3665,7 +3698,7 @@ def main(argv) -> int:
                 if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kern) / 1e3
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-        log13("profile", {
+        log_row("profile", {
             "label": label, "wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
@@ -3982,6 +4015,243 @@ def main(argv) -> int:
     record["phase13"] = phase13_rows
     record["phase13_s"] = phase13_s
 
+    # ------------------------------------------------------------------
+    # Phase 14: DLRM RM2 (``models/dlrm.py``) at full(), float32, seeded
+    # random weights on the card, ``dlrm_batch`` inputs.  (a) serve_p99
+    # (B 512) and (b) serve_bulk (B 262,144): forward and loss, each held
+    # against float64 MLPs over the same float32 tables; (c)
+    # retrieval_cand: one query against 1,000,000 candidates; (d) K = 8
+    # multi-hot at B 65,536, then the bag kernel on each of the 26 tables
+    # against the model's lookup (a check: the reference's DLRM gathers
+    # and calls no kernel, and neither does the port's); (e) bfloat16
+    # tables at serve_bulk against the float32 forward over the same
+    # tables rounded to bfloat16.  Every forward twice, bitwise; finite.
+    # ------------------------------------------------------------------
+    from repro_torch.models import dlrm as DL
+    del p13_src, p13_dst
+    phase14_rows = []
+    t14 = time.perf_counter()
+    p14_start_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"phase 14: {p14_start_gb:.3f} GB allocated at its start")
+
+    def log14(tag, row):
+        log(f"phase 14 {tag} " + json.dumps(row))
+        phase14_rows.append(dict(row, line=tag))
+
+    rm2 = GC.get("dlrm-rm2").full()
+    ex_flops = dlrm_dense_flops(rm2)
+    reset_peak()
+    t0 = time.perf_counter()
+    dlrm = DL.dlrm_init(rm2, gen13(141), device=dev)
+    torch.cuda.synchronize()
+    init_row = {"init_s": time.perf_counter() - t0,
+                "tables_gb": dlrm["tables"].numel() * 4 / 1e9,
+                "params": rm2.param_count(), "flops_per_example": ex_flops,
+                "allocated_at_start_gb": p14_start_gb,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "card": card}
+    log14("init", init_row)
+
+    def dlrm_run(label, model, b):
+        """``model``'s forward on ``b`` twice, each timed to a synchronize
+        (cold, warm), bitwise equal and finite, its device time and its
+        four stages' (CUDA events), the loss, the peak device memory and
+        the achieved TFLOP/s (the reference's dense FLOPs an example)."""
+        reset_peak()
+        out, cold = timed(lambda: model(b["dense"], b["sparse"]))
+        again, warm = timed(lambda: model(b["dense"], b["sparse"]))
+        loss, loss_ms = timed(lambda: float(model.loss(b)))
+        nb = b["dense"].shape[0]
+        dev_ms = time_ms(lambda: model(b["dense"], b["sparse"]), 5)
+        # each stage alone on the forward's own intermediates
+        cfg = model.cfg
+        with torch.no_grad():
+            bot = DL._bottom(model, b["dense"])
+            emb = DL._lookup(cfg, model["tables"], b["sparse"]).to(bot.dtype)
+            x = DL._interact(cfg, bot, emb)
+            stages = {
+                "bottom_mlp": time_ms(lambda: DL._bottom(model, b["dense"]),
+                                      5),
+                "lookup": time_ms(lambda: DL._lookup(
+                    cfg, model["tables"], b["sparse"]), 5),
+                "interaction": time_ms(lambda: DL._interact(cfg, bot, emb),
+                                       5),
+                "top_mlp": time_ms(lambda: GN._mlp(model["top"], x), 5)}
+            del bot, emb, x
+        row = {"case": label, "batch": nb,
+               "multi_hot": model.cfg.multi_hot, "dtype": model.cfg.dtype,
+               "cold_ms": cold, "warm_ms": warm, "device_ms": dev_ms,
+               "loss": loss, "loss_ms": loss_ms,
+               "gflop": nb * ex_flops / 1e9,
+               "tflops_warm": nb * ex_flops / warm / 1e9,
+               "tflops_device": nb * ex_flops / dev_ms / 1e9,
+               "stages_device_ms": stages,
+               "bitwise_repeat": bool(torch.equal(bits(out), bits(again))),
+               "finite": bool(torch.isfinite(out).all()),
+               "shape": list(out.shape),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "card": card}
+        if not (row["bitwise_repeat"] and row["finite"]
+                and row["shape"] == [nb] and math.isfinite(loss)):
+            raise RuntimeError(f"phase 14 {label}: repeat bitwise "
+                               f"{row['bitwise_repeat']}, finite "
+                               f"{row['finite']}, shape {row['shape']}, "
+                               f"loss {loss}")
+        return out, row
+
+    def dlrm_f64(row, model, b, out):
+        """The float32 logits against float64 MLPs over the same float32
+        tables (the gather is exact): within GNN_TOL·(|x| + max|x|)."""
+        out64 = model.cast("float64", tables=False)(b["dense"], b["sparse"])
+        share, err = gnn_share(out, out64)
+        row.update(f64_worst_over_limit=share, f64_max_abs_err=err,
+                   f64_scale=float(out64.abs().max()))
+        if share > 1.0:
+            raise RuntimeError(f"phase 14 {row['case']}: float32 against "
+                               f"float64 {share} times the limit")
+
+    # (a) serve_p99, (b) serve_bulk
+    bulk = None
+    for shape in ("serve_p99", "serve_bulk"):
+        nb = GC.RECSYS_SHAPES[shape]["batch"]
+        b = GD.dlrm_batch(rm2, nb, seed=142, device=dev)
+        out, row = dlrm_run(f"dlrm-rm2 {shape}", dlrm, b)
+        reset_peak()
+        dlrm_f64(row, dlrm, b, out)
+        row["f64_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log14("serve", row)
+        bulk = b
+        del out
+    # beside the events' device time, the profiler's busy time of the
+    # same forward (the two disagree where the trace drops kernels)
+    p13_profile("dlrm-rm2 serve_bulk forward",
+                lambda: dlrm(bulk["dense"], bulk["sparse"]), log14)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) retrieval_cand: one query against 1,000,000 candidates
+    rshape = GC.RECSYS_SHAPES["retrieval_cand"]
+    rb = GD.dlrm_batch(rm2, rshape["batch"], seed=143, device=dev)
+    cand = torch.randn((rshape["n_candidates"], rm2.embed_dim),
+                       generator=gen13(144), device=dev)
+    reset_peak()
+    scores, cold = timed(lambda: dlrm.retrieval_scores(
+        rb["dense"], rb["sparse"], cand))
+    again, warm = timed(lambda: dlrm.retrieval_scores(
+        rb["dense"], rb["sparse"], cand))
+    user = dlrm.user_vector(rb["dense"], rb["sparse"])
+    err = float((scores - user @ cand.T).abs().max())
+    top = torch.topk(scores[0], 10)
+    r_flops = (2 * rshape["batch"] * rshape["n_candidates"] * rm2.embed_dim
+               + rshape["batch"] * ex_flops)
+    dev_ms = time_ms(lambda: dlrm.retrieval_scores(rb["dense"], rb["sparse"],
+                                                   cand), 5)
+    row = {"case": "dlrm-rm2 retrieval_cand", "batch": rshape["batch"],
+           "n_candidates": rshape["n_candidates"], "cold_ms": cold,
+           "warm_ms": warm, "device_ms": dev_ms,
+           "bytes_gb": cand.numel() * 4 / 1e9, "gflop": r_flops / 1e9,
+           "vs_user_dot_max_abs_err": err,
+           "bitwise_repeat": bool(torch.equal(bits(scores), bits(again))),
+           "finite": bool(torch.isfinite(scores).all()),
+           "shape": list(scores.shape),
+           "top10": [int(i) for i in top.indices],
+           "top10_scores": [float(s) for s in top.values],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    log14("retrieval", row)
+    if not (err <= 1e-5 and row["bitwise_repeat"] and row["finite"]
+            and row["shape"] == [rshape["batch"], rshape["n_candidates"]]):
+        raise RuntimeError(f"phase 14 retrieval: {json.dumps(row)}")
+    del rb, cand, scores, again, user, top
+
+    # (d) K = 8 multi-hot at B 65,536 over the same tables, then the bag
+    # kernel on each table against the model's lookup
+    cfg8 = dataclasses.replace(rm2, multi_hot=8)
+    dlrm8 = DL.DLRM(cfg8, dlrm.tree())
+    b8 = GD.dlrm_batch(cfg8, RM2_BAGS, seed=145, device=dev)
+    out, row = dlrm_run("dlrm-rm2 multi-hot K=8", dlrm8, b8)
+    log14("multi-hot", row)
+    del out
+    tables = dlrm["tables"]
+    with torch.no_grad():
+        want8 = DL._lookup(cfg8, tables, b8["sparse"])
+        want1 = DL._lookup(rm2, tables, bulk["sparse"])
+        ids8 = [b8["sparse"][:, f, :].contiguous()
+                for f in range(rm2.n_sparse)]
+        ids1 = [bulk["sparse"][:, f:f + 1].contiguous()
+                for f in range(rm2.n_sparse)]
+        vec = {EB.vector_width(tables[f]) for f in range(rm2.n_sparse)}
+        EB.reset_launches()
+        worst, err8, bitwise1 = 0.0, 0.0, True
+        for f in range(rm2.n_sparse):
+            got = EB.embedding_bag(tables[f], ids8[f])
+            rows_abs = tables[f][EB._wrap_indices(ids8[f], rm2.vocab)] \
+                .abs().sum(dim=1)
+            diff = (got - want8[:, f]).abs()
+            worst = max(worst, float((diff / (
+                8 * 2.0 ** -24 * rows_abs)).nan_to_num(0.0).max()))
+            err8 = max(err8, float(diff.max()))
+            bitwise1 &= bool(torch.equal(
+                EB.embedding_bag(tables[f], ids1[f]), want1[:, f]))
+        launched = EB.LAUNCHES["bag"]
+        del got, rows_abs, diff, want1
+        kernel_ms = time_ms(lambda: [EB.embedding_bag(tables[f], ids8[f])
+                                     for f in range(rm2.n_sparse)], 5)
+        lookup_ms = time_ms(lambda: DL._lookup(cfg8, tables, b8["sparse"]),
+                            5)
+        kernel1_ms = time_ms(lambda: [EB.embedding_bag(tables[f], ids1[f])
+                                      for f in range(rm2.n_sparse)], 5)
+        lookup1_ms = time_ms(lambda: DL._lookup(rm2, tables,
+                                                bulk["sparse"]), 5)
+    bag_check = {
+        "case": f"dlrm-rm2 tables (26 × {rm2.vocab:,} × {rm2.embed_dim}), "
+                f"K=8 at B {RM2_BAGS}; K=1 at B {bulk['sparse'].shape[0]}",
+        "max_abs_err": err8, "worst_over_limit": worst,
+        "tolerance": {"of": "the model's lookup", "K=8": "8·2^-24·Σ|rows|",
+                      "K=1": "bitwise"},
+        "k1_bitwise": bitwise1, "vector_widths": sorted(vec),
+        "launches": launched, "ms_26_launches": kernel_ms,
+        "model_lookup_ms": lookup_ms, "k1_ms_26_launches": kernel1_ms,
+        "k1_model_lookup_ms": lookup1_ms, "card": card}
+    log14("bag on DLRM's tables", bag_check)
+    if worst > 1.0 or not bitwise1 or launched != 2 * rm2.n_sparse:
+        raise RuntimeError(f"phase 14: the bag kernel on DLRM's tables: "
+                           f"{worst} times the K=8 limit, K=1 bitwise "
+                           f"{bitwise1}, {launched} launches")
+    del dlrm8, b8, want8, ids8, ids1, tables, dlrm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) bfloat16 tables at serve_bulk (the float32 tables freed first),
+    # against the float32 forward over the same tables rounded
+    bf_cfg = dataclasses.replace(rm2, dtype="bfloat16")
+    reset_peak()
+    bf = DL.dlrm_init(bf_cfg, gen13(141), device=dev)
+    out, row = dlrm_run("dlrm-rm2 serve_bulk, bfloat16 tables", bf, bulk)
+    row["tables_gb"] = bf["tables"].numel() * 2 / 1e9
+    ref32 = bf.cast("float32")
+    with torch.no_grad():
+        lk_bf = DL._lookup(bf_cfg, bf["tables"], bulk["sparse"])
+        lk_32 = DL._lookup(rm2, ref32["tables"], bulk["sparse"])
+        lookup_bitwise = bool(torch.equal(lk_bf.float(), lk_32))
+        del lk_bf, lk_32
+        out32 = ref32(bulk["dense"], bulk["sparse"])
+    share, err = gnn_share(out, out32)
+    row.update(lookup_bitwise=lookup_bitwise,
+               vs_f32_worst_over_limit=share, vs_f32_max_abs_err=err,
+               vs_f32_bitwise=bool(torch.equal(bits(out), bits(out32))))
+    log14("bfloat16", row)
+    if not lookup_bitwise or share > 1.0:
+        raise RuntimeError(f"phase 14 bfloat16: lookup bitwise "
+                           f"{lookup_bitwise}, logits {share} times the "
+                           f"limit")
+    del bf, ref32, out, out32, bulk
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase14_s = time.perf_counter() - t14
+    log(f"phase 14: {phase14_s:.1f} s")
+    record["phase14"] = phase14_rows
+    record["phase14_s"] = phase14_s
+
     # the contract's kernel line: times of the weighted-PageRank round with
     # every source active (the push− main path's shapes)
     ref_case = [c for c in cases if c["graph"] == "rmat16"
@@ -4061,6 +4331,12 @@ def main(argv) -> int:
     softmax_row["model_check"] = {k: softmax_check[k] for k in (
         "case", "max_abs_err", "worst_over_limit", "tolerance",
         "ms_per_head", "ms_all_heads", "model_softmax_ms")}
+    # nor the bag: phase 14's check of it on DLRM's own tables and ids
+    (bag_row,) = [k for k in kernels if k["name"] == "bag_kernel"]
+    bag_row["model_check"] = {k: bag_check[k] for k in (
+        "case", "max_abs_err", "worst_over_limit", "tolerance", "k1_bitwise",
+        "ms_26_launches", "model_lookup_ms", "k1_ms_26_launches",
+        "k1_model_lookup_ms")}
     record["kernels"] = kernels
     try:
         out_dir.mkdir(exist_ok=True)

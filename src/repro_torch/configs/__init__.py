@@ -1,21 +1,18 @@
 """Architecture registry of the port: the five LM architectures, the four
-GNNs and the paper's own analytics workload, each selectable via
-``--arch <id>``.
+GNNs, DLRM RM2 and the paper's own analytics workload, each selectable via
+``--arch <id>``: every entry of the reference's registry
+(``repro.configs``), and ``ASSIGNED`` equal to its.
 
 Each arch module exposes ``full()`` (the exact published config) and
 ``smoke()`` (a reduced same-family config for CPU tests), field for field
-the reference's (``repro.configs``), plus the family tag that picks the
-model code and the shape set.  Only the reference's recsys entry
-(dlrm-rm2) is still missing: it joins with its model in the next part of
-the ML stack (ROADMAP Queue 1, item 12c); until then ``get`` raises the
-reference's ``KeyError`` for it, and ``ASSIGNED`` lists what is
-registered.  The shape sets are the reference's, all three families.
+the reference's, plus the family tag that picks the model code and the
+shape set.  The shape sets are the reference's, all three families.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (deepseek_v3_671b, dimenet, egnn,
+from repro_torch.configs import (deepseek_v3_671b, dimenet, dlrm_rm2, egnn,
                                  gat_cora, grafs_analytics, llama3_2_3b,
                                  llama4_maverick_400b_a17b, meshgraphnet,
                                  qwen2_72b, yi_9b)
@@ -85,6 +82,7 @@ ARCHS = {
     "meshgraphnet": ArchEntry("meshgraphnet", "gnn", "mgn", meshgraphnet),
     "egnn": ArchEntry("egnn", "gnn", "egnn", egnn),
     "gat-cora": ArchEntry("gat-cora", "gnn", "gat", gat_cora),
+    "dlrm-rm2": ArchEntry("dlrm-rm2", "recsys", "dlrm", dlrm_rm2),
     "grafs-analytics": ArchEntry("grafs-analytics", "analytics", "grafs",
                                  grafs_analytics),
 }

@@ -1824,3 +1824,71 @@ def test_gnn_vertex_cut_on_card_matches_cpu(cuda_device, arch, monkeypatch):
     for g, w in zip(outs[str(cuda_device)], outs["cpu"]):
         assert g.device.type == "cuda"
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# DLRM (models/dlrm.py) on the card
+# ---------------------------------------------------------------------------
+
+def _dlrm_case(multi_hot, device):
+    """The smoke DLRM (seeded weights, made on the CPU) and its batch from
+    the port's ``dlrm_batch``, on ``device``."""
+    import repro_torch.configs as TCF
+    from repro_torch.data import graphs as TDG
+    from repro_torch.models import dlrm as TDL
+    cfg = dataclasses.replace(TCF.get("dlrm-rm2").smoke(),
+                              multi_hot=multi_hot)
+    model = TDL.dlrm_init(cfg, torch.Generator().manual_seed(7),
+                          device="cpu").to_device(device)
+    return model, TDG.dlrm_batch(cfg, 64, seed=3, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("multi_hot", [1, 3])
+def test_dlrm_smoke_on_card_matches_cpu(cuda_device, multi_hot,
+                                        monkeypatch):
+    """The smoke DLRM (float32) on the card against the CPU port with the
+    same weights and inputs: logits, loss and user vector allclose 1e-4
+    (full float32 products, TF32 off), and two runs on the card bitwise
+    equal (the gather and cuBLAS use no atomics)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu, cpu_b = _dlrm_case(multi_hot, "cpu")
+    card, b = _dlrm_case(multi_hot, cuda_device)
+    assert card.device.type == "cuda"
+    got = card(b["dense"], b["sparse"])
+    again = card(b["dense"], b["sparse"])
+    assert got.device.type == "cuda"
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    torch.testing.assert_close(got.cpu(), cpu(cpu_b["dense"],
+                                              cpu_b["sparse"]),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(card.loss(b).cpu(), cpu.loss(cpu_b),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(
+        card.user_vector(b["dense"], b["sparse"]).cpu(),
+        cpu.user_vector(cpu_b["dense"], cpu_b["sparse"]),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_embedding_bag_kernel_matches_dlrm_lookup_on_card(cuda_device):
+    """The bag kernel on each smoke table (a contiguous view) with the
+    field's ids against the model's lookup: K = 3 within 3·2^-24·Σ|rows|
+    (two orders of three float32 adds), K = 1 bitwise the single-hot
+    gather."""
+    from repro_torch.models import dlrm as TDL
+    TEB.reset_launches()
+    for k in (3, 1):
+        model, b = _dlrm_case(k, cuda_device)
+        tables, idx = model["tables"], b["sparse"]
+        want = TDL._lookup(model.cfg, tables, idx)
+        for f in range(model.cfg.n_sparse):
+            ids = idx[:, f, :] if k > 1 else idx[:, f:f + 1]
+            got = TEB.embedding_bag(tables[f], ids.contiguous())
+            if k == 1:
+                assert torch.equal(got, want[:, f]), f
+            else:
+                rows = tables[f][ids.long()].abs().sum(dim=1)
+                assert bool(((got - want[:, f]).abs()
+                             <= k * 2.0 ** -24 * rows).all()), f
+    assert TEB.LAUNCHES["bag"] == 2 * model.cfg.n_sparse

@@ -184,10 +184,9 @@ def test_registry_matches_reference():
     assert TC.GNN_SHAPES == RC.GNN_SHAPES
     assert TC.RECSYS_SHAPES == RC.RECSYS_SHAPES
     assert TC.SHAPES_BY_FAMILY == RC.SHAPES_BY_FAMILY
-    assert TC.ASSIGNED == [a for a in RC.ASSIGNED if a != "dlrm-rm2"]
-    assert TC.ASSIGNED == LM_ARCHS + GNN_ARCHS
-    assert sorted(TC.ARCHS) == sorted(LM_ARCHS + GNN_ARCHS
-                                      + ["grafs-analytics"])
+    assert TC.ASSIGNED == RC.ASSIGNED
+    assert TC.ASSIGNED == LM_ARCHS + GNN_ARCHS + ["dlrm-rm2"]
+    assert sorted(TC.ARCHS) == sorted(RC.ARCHS)
     for arch_id, entry in TC.ARCHS.items():
         ref = RC.get(arch_id)
         assert (entry.arch_id, entry.family, entry.kind) == \
@@ -198,29 +197,25 @@ def test_registry_matches_reference():
 
 
 @pytest.mark.parametrize("arch_id", GNN_ARCHS + ["dlrm-rm2"])
-def test_unregistered_archs_raise_the_reference_message(arch_id):
-    """The GNNs are registered since their slice of the port, as the
-    reference's entries (family, kind, ``full()``, ``smoke()``); the one
-    arch still to come, dlrm-rm2, raises the reference's ``KeyError``."""
-    ref = RC.get(arch_id)                         # the reference has it
-    if arch_id in GNN_ARCHS:
-        entry = TC.get(arch_id)
-        assert (entry.arch_id, entry.family, entry.kind) == \
-            (ref.arch_id, ref.family, ref.kind)
-        for size in ("full", "smoke"):
-            assert dataclasses.asdict(getattr(entry, size)()) == \
-                dataclasses.asdict(getattr(ref, size)())
-        assert arch_id in TC.ASSIGNED
-        return
-    assert arch_id not in TC.ASSIGNED
+def test_model_archs_registered_as_the_reference(arch_id):
+    """The GNNs and dlrm-rm2 are registered as the reference's entries
+    (family, kind, ``full()``, ``smoke()``) and assigned; an unknown arch
+    raises the reference's ``KeyError`` message."""
+    ref = RC.get(arch_id)
+    entry = TC.get(arch_id)
+    assert (entry.arch_id, entry.family, entry.kind) == \
+        (ref.arch_id, ref.family, ref.kind)
+    for size in ("full", "smoke"):
+        assert dataclasses.asdict(getattr(entry, size)()) == \
+            dataclasses.asdict(getattr(ref, size)())
+    assert arch_id in TC.ASSIGNED
     with pytest.raises(KeyError) as err:
-        TC.get(arch_id)
-    assert err.value.args[0] == (f"unknown arch {arch_id!r}; known: "
-                                 f"{sorted(TC.ARCHS)}")
+        TC.get("no-such-arch")
     with pytest.raises(KeyError) as ref_err:
         RC.get("no-such-arch")
-    assert re.fullmatch(r"unknown arch 'no-such-arch'; known: \[.*\]",
-                        ref_err.value.args[0])
+    assert err.value.args[0] == (f"unknown arch 'no-such-arch'; known: "
+                                 f"{sorted(TC.ARCHS)}")
+    assert err.value.args[0] == ref_err.value.args[0]
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
