@@ -287,6 +287,39 @@ libraries at once, into ``build/repro_torch/``), and then
    (b) a profile of the same forward), the loss, the achieved TFLOP/s
    (the reference workloads' dense FLOPs: 1,613,440 an example), the peak
    device memory and the card.
+15. trains (``launch/workloads.py``'s train steps under
+   ``runtime/ft.py``'s ``FaultTolerantDriver.run_step``, ``optim/adamw.py``,
+   the flash core's backward in ``models/layers.py``), after phase 14's
+   memory is freed: (a) llama3.2-3B at full width (28 layers, bfloat16
+   parameters, float32 AdamW state), ``train_4k`` at S 4,096 with the
+   batch cut from 256 to 4 (``n_micro`` 2 by the reference's rule), three
+   steps on ``TokenStream`` batches, step 1 run again from the same state
+   (drawn again from its seed; the first result kept in pinned host
+   memory) and required bitwise, then a fourth step's two halves
+   (gradients, AdamW update) timed apart and a fifth gradient half
+   profiled (device busy time, top kernels), the state finite after;
+   (b) the flash
+   core's gradient against naive attention's at full width, depth 2,
+   batch 1 × 4,096, float64, within 1e-10·(|g| + max|g|); (c) GAT on
+   ``cora_like()``, MeshGraphNet on the 256 × 256 grid (single device and
+   over 4 vertex-cut shards, ``variant="dist"``), EGNN and DimeNet on 128
+   molecules × 30 atoms, at ``full()``, and (d) DLRM RM2 at ``train_batch``
+   (B 65,536, dense AdamW, rows cut from 4,000,000 to 1,000,000): the
+   first step's gradients within ``GNN_TOL``·(|g| + max|g|) of float64
+   parameters' (float64 MLPs over the same tables for RM2), the float64
+   run taking the float32 run's ReLU signs (the plain float64 step's share
+   and the count of units whose sign differs are recorded), the shards'
+   loss and gradients within 1e-5·(|g| + max|g|) of one device's, then
+   three steps each run on two copies of the state and required bitwise;
+   (e) ``launch.train.main`` for llama3.2-3B at ``--smoke`` for 4 steps
+   (checkpoint every 2), ``--resume`` to 6, against an uninterrupted 6-step
+   run (the step-6 checkpoints byte-equal), and for gat-cora and dlrm-rm2.
+   Every FT driver reads 0 retries and 0 restores, and no kernel of the
+   port launches (the reference's training path reaches no Pallas
+   kernel).  Each step line gives the wall, device ms (CUDA events),
+   TFLOP/s on the wall (6·N·tokens for the LM, the reference workloads'
+   model FLOPs for the others), loss, gradient norm, learning rate, the
+   peak device memory and the card.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -415,6 +448,592 @@ def card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: training (launch/workloads.py, optim/adamw.py, runtime/ft.py,
+# launch/train.py, the flash core's backward in models/layers.py).
+# ---------------------------------------------------------------------------
+
+# (a) llama3.2-3B's train_4k at its full sequence, the batch cut from 256
+# to 4 (n_micro 2 by the reference's rule); (b) the flash core's gradient
+# against naive attention's in float64 at depth 2, batch 1 × 4,096,
+# elementwise within FLASH_GRAD_TOL·(|g| + max|g|); (c) the GNNs' and
+# (d) DLRM RM2's steps, their first gradients within GNN_TOL·(|g| +
+# max|g|) of float64 parameters, 4 vertex-cut shards against one device
+# within SHARD_GRAD_TOL·(|g| + max|g|); RM2's tables cut from 4,000,000 to
+# 1,000,000 rows (the DLRMConfig default: tables, gradient, m and v 26.6
+# GB, against ≈ 106 GB uncut).
+P15_LM_BATCH = 4
+P15_STEPS = 3
+FLASH_GRAD_TOL = 1e-10
+SHARD_GRAD_TOL = 1e-5
+P15_RM2_ROWS = 1_000_000
+
+
+def phase15(torch, dev, card, record, log, bits, reset_peak):
+    """Phase 15 of the smoke (module docstring, item 15); returns its
+    rows, every one also logged as a ``phase 15`` line."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    import repro_torch.configs as GC
+    from repro_torch.data import graphs as GD
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.graph import structure as TS
+    from repro_torch.graph.partition import ShardMesh
+    from repro_torch.kernels import edge_reduce as ER
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import segment_softmax as SS
+    from repro_torch.launch import train as TTrain
+    from repro_torch.launch import workloads as TWk
+    from repro_torch.models import dlrm as DL
+    from repro_torch.models import gnn as GN
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    from repro_torch.tree import leaves, tree_map
+    from repro_torch.runtime.ft import FTConfig, FaultTolerantDriver
+
+    rows = []
+    t15 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="grafs_train_"))
+
+    def log15(tag, row):
+        log(f"phase 15 {tag} " + json.dumps(row))
+        rows.append(dict(row, line=tag))
+
+    def counts():
+        return {"edge": dict(ER.LAUNCHES), "bag": dict(EB.LAUNCHES),
+                "softmax": dict(SS.LAUNCHES), "flash": dict(FA.LAUNCHES)}
+
+    launches_before = counts()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def free(stage=None):
+        """Collect, then log the device bytes still allocated (each
+        part's tensors are dropped before the next)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        if stage is not None:
+            log15("allocated", {"after": stage, "allocated_gb":
+                                torch.cuda.memory_allocated() / 1e9})
+
+    free("phase 14")
+
+    def grad_share(got, want, tol):
+        """The worst |Δ| over tol·(|want| + max|want|) over the leaves of
+        two gradient trees (a leaf of zeros in both counts 0), and the
+        max |Δ|; in float64, 2^24 elements at a time."""
+        worst = err = 0.0
+        for a, b in zip(leaves(got), leaves(want)):
+            if a.shape != b.shape:
+                raise RuntimeError(f"phase 15: gradient leaves {a.shape} "
+                                   f"and {b.shape}")
+            if not b.numel():
+                continue
+            top = float(b.abs().max())
+            for ca, cb in zip(a.reshape(-1).split(1 << 24),
+                              b.reshape(-1).split(1 << 24)):
+                d = (ca.double() - cb.double()).abs()
+                lim = tol * (cb.double().abs() + top)
+                worst = max(worst, float((d / lim).nan_to_num(
+                    posinf=float("inf")).max()))
+                err = max(err, float(d.max()))
+        return worst, err
+
+    class Pattern:
+        """The signs at every ReLU and leaky ReLU of the GNN and DLRM
+        forwards (``models.gnn._mlp``'s activations, GAT's edge logits):
+        recorded in call order by a float32 run, replayed by a float64
+        run, which so differentiates the same piecewise-linear function.
+        Unreplayed, a float64 run takes the other side of a kink wherever
+        the float32 rounding crossed 0 and its gradient moves by a whole
+        example's share there; ``flips`` counts those units."""
+
+        def __init__(self):
+            self.masks, self.flips, self.units, self.pos = [], 0, 0, None
+
+        def _act(self, x, slope):
+            if self.pos is None:
+                self.masks.append(x.detach() > 0)
+                return F.relu(x) if slope == 0.0 else \
+                    F.leaky_relu(x, slope)
+            m = self.masks[self.pos]
+            self.pos += 1
+            self.flips += int(((x.detach() > 0) != m).sum())
+            self.units += m.numel()
+            return torch.where(m, x, slope * x)
+
+        @contextlib.contextmanager
+        def on(self, replay=False):
+            self.pos = 0 if replay else None
+            orig = GN._mlp, DL._mlp, GN.F
+            pat = self
+
+            def mlp(params, x, act=None, final_act=False):
+                for i, lyr in enumerate(params):
+                    x = x @ lyr["w"] + lyr["b"]
+                    if i < len(params) - 1 or final_act:
+                        x = pat._act(x, 0.0)
+                return x
+
+            class Fns:
+                def __getattr__(self, name):
+                    return getattr(F, name)
+
+                @staticmethod
+                def leaky_relu(x, slope=0.01):
+                    return pat._act(x, slope)
+
+            GN._mlp = DL._mlp = mlp
+            GN.F = Fns()
+            try:
+                yield self
+            finally:
+                GN._mlp, DL._mlp, GN.F = orig
+            if replay and self.pos != len(self.masks):
+                raise RuntimeError("phase 15: the float64 run took "
+                                   f"{self.pos} activations of "
+                                   f"{len(self.masks)}")
+
+    def f64_grads(label, wl, params, params64, batch, batch64):
+        """The float32 gradients, and their share of GNN_TOL·(|g| + max|g|)
+        off the float64 gradients of the same step with the float32
+        run's ReLU signs (required), beside the share off the plain
+        float64 step (recorded).  The recording run must give the bits of
+        the model's own, unpatched gradients (required), so the gradients
+        held against float64 are the model's."""
+        loss, g = wl.grad_fn(params, batch)
+        pat = Pattern()
+        with pat.on():
+            loss_rec, g_rec = wl.grad_fn(params, batch)
+        own = same_bits((loss, g), (loss_rec, g_rec))
+        del loss_rec, g_rec
+        if not own:
+            raise RuntimeError(f"phase 15 {label}: the recording run's "
+                               "gradients are not the model's own")
+        with pat.on(replay=True):
+            loss64, g64 = wl.grad_fn(params64, batch64)
+        share, err = grad_share(g, g64, GNN_TOL)
+        del g64
+        plain64, gp = wl.grad_fn(params64, batch64)
+        plain, _ = grad_share(g, gp, GNN_TOL)
+        del gp
+        row = {"case": label, "loss": float(loss), "loss_f64": float(loss64),
+               "loss_f64_plain": float(plain64),
+               "f64_worst_over_limit": share, "f64_max_abs_err": err,
+               "relu_units": pat.units, "relu_flips": pat.flips,
+               "recording_is_model_bitwise": own,
+               "f64_plain_worst_over_limit": plain, "card": card}
+        if share > 1.0:
+            raise RuntimeError(f"phase 15 {label}: gradients {share} times "
+                               f"the limit off float64's")
+        return loss, g, row
+
+    def same_bits(x, y):
+        return all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(leaves(x), leaves(y)))
+
+    def driver(wl, tag, data_state=dict, data_restore=lambda st: None):
+        return FaultTolerantDriver(
+            FTConfig(ckpt_dir=str(root / tag)),
+            lambda st, b: _split15(wl.step_fn(st[0], st[1], b)),
+            data_state, data_restore, state_devices=dev)
+
+    def ft_ok(ft, label):
+        s = ft.stats
+        if s.retries or s.restores:
+            raise RuntimeError(f"phase 15 {label}: {s.retries} retries, "
+                               f"{s.restores} restores")
+        return {"retries": s.retries, "restores": s.restores,
+                "stragglers": s.stragglers}
+
+    def step_row(ft, state, batch, flops):
+        """One guarded step: wall (host clock to a synchronize), device ms
+        (CUDA events), TFLOP/s on the wall, the metrics and the peak."""
+        reset_peak()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        state, m = ft.run_step(state, batch)
+        b.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row = {"wall_s": wall, "device_ms": a.elapsed_time(b),
+               "tflops": flops / wall / 1e12, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+               "card": card}
+        if not all(math.isfinite(row[k]) for k in ("loss", "grad_norm")):
+            raise RuntimeError(f"phase 15: a non-finite step {row}")
+        return state, m, row
+
+    # -- (a) llama3.2-3B at full width, train_4k, batch 4 ----------------
+    wl = TWk.build_workload("llama3.2-3b", "train_4k", None,
+                            shape_changes={"batch": P15_LM_BATCH})
+    cfg = wl.cfg
+    n_params = cfg.param_count()
+    seq, batch = wl.meta["seq"], wl.meta["batch"]
+    tokens = seq * batch
+    flops = 6 * n_params * tokens
+    log15("llama cuts", {"arch": "llama3.2-3b", "shape": "train_4k",
+                         "cuts": wl.meta["cuts"], "seq": seq,
+                         "n_micro": wl.meta["n_micro"], "layers":
+                         cfg.n_layers, "d_model": cfg.d_model,
+                         "vocab": cfg.vocab, "params": n_params,
+                         "opt_state_dtype": wl.opt_cfg.state_dtype,
+                         "remat": cfg.remat, "flops_per_step": flops})
+    if wl.meta["n_micro"] != 2:
+        raise RuntimeError(f"phase 15: n_micro {wl.meta['n_micro']}, not 2")
+    stream = TokenStream(vocab=cfg.vocab, batch=batch, seq=seq, seed=17)
+
+    def lm_state():
+        params = TT.init_params(cfg, gen(151), device=dev).tree()
+        return params, adamw_init(wl.opt_cfg, params)
+
+    def data_restore(st):
+        stream.seed, stream.step = int(st["seed"]), int(st["step"])
+
+    ft = driver(wl, "llama", stream.state, data_restore)
+    state = lm_state()
+    state_gb = sum(t.numel() * t.element_size() for t in leaves(state)) / 1e9
+    b1 = stream.next_batch()
+    state, m1, row = step_row(ft, state, b1, flops)
+    log15("llama step 1", dict(row, step=1, state_gb=state_gb))
+    # step 1 again from the same state (the step updates in place: the
+    # state is drawn again from its seed, the first run's result kept on
+    # the host meanwhile)
+    def host_copy(t):
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+    t0 = time.perf_counter()
+    first = [host_copy(t) for t in leaves(state)]
+    copy_s = time.perf_counter() - t0
+    del state
+    free()
+    stream.step = 0
+    state = lm_state()
+    b1_again = stream.next_batch()
+    if not all(torch.equal(b1[k], b1_again[k]) for k in b1):
+        raise RuntimeError("phase 15: the token stream did not replay")
+    state, m1b, row = step_row(ft, state, b1_again, flops)
+    t0 = time.perf_counter()
+    same = float(m1b["loss"]) == float(m1["loss"]) \
+        and float(m1b["grad_norm"]) == float(m1["grad_norm"])
+    same = same and all(torch.equal(bits(a), bits(b.to(dev)))
+                        for a, b in zip(leaves(state), first))
+    row.update(step=1, repeat=True, bitwise_repeat=same,
+               host_copy_s=copy_s, compare_s=time.perf_counter() - t0)
+    log15("llama step 1 repeat", row)
+    del first
+    if not same:
+        raise RuntimeError("phase 15: llama3.2-3B's step 1 is not bitwise "
+                           "on its repeat")
+    for step in range(2, P15_STEPS + 1):
+        state, m, row = step_row(ft, state, stream.next_batch(), flops)
+        log15(f"llama step {step}", dict(row, step=step))
+    # where a step's time goes: its two halves (gradients, then the AdamW
+    # update) timed apart with CUDA events, then the gradient half once
+    # more under the profiler
+    params, opt = state
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    with TWk.deterministic():
+        ev[0].record()
+        _, grads = wl.grad_fn(params, stream.next_batch())
+        ev[1].record()
+        params, opt, _ = adamw_update(wl.opt_cfg, params, grads, opt)
+        ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+    # the update's least bytes: the norm reads the float32 gradient, the
+    # update reads parameter, gradient, m and v and writes parameter, m, v
+    p_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    upd_bytes = 2 * p_bytes + 2 * 4 * n_params + 4 * 4 * n_params
+    row = {"grad_ms": ev[0].elapsed_time(ev[1]),
+           "update_ms": ev[1].elapsed_time(ev[2]),
+           "update_bound_ms": upd_bytes / HBM_BYTES_PER_S * 1e3,
+           "update_bytes": upd_bytes}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with TWk.deterministic():
+            _, grads = wl.grad_fn(params, stream.next_batch())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del grads
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    row.update(profiled_grad_wall_ms=wall * 1e3, device_busy_ms=busy,
+               idle_share=1 - busy / (wall * 1e3),
+               top=[{"name": e.key[:90], "ms": e.self_device_time_total
+                     / 1e3, "calls": e.count} for e in top], card=card)
+    log15("llama step split", row)
+    state = (params, opt)
+    del prof, kern, top, params, opt
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves(state)
+                 if t.is_floating_point())
+    log15("llama driver", dict(ft_ok(ft, "llama"), state_finite=finite))
+    if not finite:
+        raise RuntimeError("phase 15: llama3.2-3B's state is not finite")
+    del state, ft
+    free("llama3.2-3B training")
+
+    # -- (b) the flash core's gradient against naive, float64, depth 2 -----
+    cfg64 = dataclasses.replace(cfg, n_layers=2, dtype="float64",
+                                param_dtype="float64")
+    model64 = TT.init_params(cfg64, gen(152), device=dev)
+    toks = TokenStream(vocab=cfg.vocab, batch=1, seq=seq, seed=18) \
+        .next_batch()
+    b64 = {k: v.to(dev, torch.long) for k, v in toks.items()}
+    grads, losses, walls = {}, {}, {}
+    for impl in ("chunked", "naive"):
+        m = model64.with_config(attn_impl=impl).trainable()
+        reset_peak()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with TWk.deterministic():
+            loss = m.loss_fn(b64)
+            grads[impl] = torch.autograd.grad(loss, leaves(
+                m.tree(live=True)))
+        torch.cuda.synchronize()
+        walls[impl] = (time.perf_counter() - t0, torch.cuda
+                       .max_memory_allocated() / 1e9)
+        losses[impl] = float(loss.detach())
+        m.trainable(False)
+        del loss, m
+    share, err = grad_share(grads["chunked"], grads["naive"], FLASH_GRAD_TOL)
+    row = {"case": "llama3.2-3B full width, depth 2, float64, B 1 x "
+                   f"{seq}", "kv_chunk": cfg.kv_chunk,
+           "loss_flash": losses["chunked"], "loss_naive": losses["naive"],
+           "worst_over_limit": share, "max_abs_err": err,
+           "tolerance": f"{FLASH_GRAD_TOL}*(|g| + max|g|)",
+           "flash_s": walls["chunked"][0], "flash_peak_gb":
+           walls["chunked"][1], "naive_s": walls["naive"][0],
+           "naive_peak_gb": walls["naive"][1], "card": card}
+    log15("flash grad float64", row)
+    if share > 1.0:
+        raise RuntimeError(f"phase 15: the flash core's float64 gradient is "
+                           f"{share} times the limit off naive attention's")
+    del model64, grads
+    free("the flash gradient check")
+
+    # -- (c) the GNNs at full() ---------------------------------------------
+    def f64(t):
+        return t.double() if torch.is_tensor(t) and t.is_floating_point() \
+            else t
+
+    def f64_batch(b):
+        if isinstance(b, list):
+            return [f64_batch(x) for x in b]
+        return {k: f64(v) for k, v in b.items()}
+
+    def train_case(label, wl, params, batch, flops, mesh_wl=None,
+                   mesh_batch=None):
+        """The first step's gradients against float64 parameters (and a
+        vertex-cut workload's against the single device's), then
+        P15_STEPS steps, each run on two copies of the state and bitwise
+        equal; returns the rows."""
+        opt = adamw_init(wl.opt_cfg, params)
+        loss, g, row = f64_grads(label, wl, params, tree_map(f64, params),
+                                 batch, f64_batch(batch))
+        if mesh_wl is not None:
+            dloss, dg = mesh_wl.grad_fn(params, mesh_batch)
+            dshare, derr = grad_share(dg, g, SHARD_GRAD_TOL)
+            row.update(shards=mesh_wl.meta["shards"], shard_loss=
+                       float(dloss), shard_worst_over_limit=dshare,
+                       shard_max_abs_err=derr)
+            if dshare > 1.0 or abs(float(dloss) - float(loss)) > \
+                    SHARD_GRAD_TOL * abs(float(loss)):
+                raise RuntimeError(f"phase 15 {label}: the shards' loss "
+                                   f"or gradients off the single device's "
+                                   f"({dshare} of the limit)")
+        log15(f"{label} gradients", row)
+        del g
+        ft = driver(wl, label.split()[0])
+        state = (params, opt)
+        for step in range(1, P15_STEPS + 1):
+            twin = tree_map(torch.clone, state)
+            dtwin = None if mesh_wl is None else tree_map(torch.clone, state)
+            state, m, row = step_row(ft, state, batch, flops)
+            twin, m2 = ft.step_fn(twin, batch)
+            same = same_bits(state, twin) and \
+                float(m["loss"]) == float(m2["loss"])
+            row.update(step=step, bitwise_repeat=same)
+            if dtwin is not None:
+                # the same step over the shards (recorded: an element whose
+                # gradient is near 0 may take another sign in Adam's step)
+                dp, _, dm = mesh_wl.step_fn(dtwin[0], dtwin[1], mesh_batch)
+                row.update(shard_loss=float(dm["loss"]),
+                           shard_grad_norm=float(dm["grad_norm"]),
+                           shard_params_max_abs_err=max(
+                               float((a - b).abs().max()) for a, b in
+                               zip(leaves(dp), leaves(state[0]))))
+                del dp, dtwin
+            log15(f"{label} step {step}", row)
+            if not same:
+                raise RuntimeError(f"phase 15 {label}: step {step} is not "
+                                   f"bitwise on its repeat")
+            del twin
+        log15(f"{label} driver", ft_ok(ft, label))
+        return state
+
+    # GAT on cora_like (full_graph_sm)
+    wl = TWk.build_workload("gat-cora", "full_graph_sm", None)
+    g_, x_, y_ = TS.cora_like(device=dev)
+    gb = {"x": x_, "src": g_.by_dst.src, "dst": g_.by_dst.dst, "y": y_}
+    params = GN.gat_init(wl.cfg, gen(153), device=dev).tree()
+    train_case("gat-cora cora_like", wl, params, gb, wl.meta["model_flops"])
+    # MeshGraphNet on the 256 x 256 grid, single device and 4 shards
+    wl = TWk.build_workload("meshgraphnet", "full_graph_sm", None)
+    mcfg = wl.cfg
+    mb = GD.mesh_batch(256, 256, d_node_in=mcfg.d_node_in,
+                       d_edge_in=mcfg.d_edge_in, d_out=mcfg.d_out, seed=5,
+                       device=dev)
+    mn, me = mb["node_x"].shape[0], mb["src"].shape[0]
+    mesh4 = ShardMesh.on(dev, 4)
+    dwl = TWk.build_workload("meshgraphnet", "full_graph_sm", mesh4,
+                             variant="dist")
+    host = {k: v.cpu().numpy() for k, v in mb.items()}
+    part = GD.dst_block_partition(host["src"], host["dst"], mn, 4, 1.3)
+    if int(part["mask"].sum()) != me:
+        raise RuntimeError("phase 15: the grid's partition dropped edges")
+    shards = GD.shard_batch(host, part, ("node_x", "target"), ("edge_x",),
+                            devices=mesh4.devices)
+    params = GN.mgn_init(mcfg, gen(154), device=dev).tree()
+    train_case("meshgraphnet grid 256x256", wl, params, mb,
+               TWk._gnn_model_flops("mgn", mcfg, mn, me, None), dwl, shards)
+    del mb, shards
+    # EGNN and DimeNet on 128 molecules x 30 atoms
+    wl = TWk.build_workload("egnn", "molecule", None)
+    eb = GD.molecule_batch(n_graphs=128, n_atoms=30, seed=5, device=dev)
+    eb.pop("n_graphs")
+    params = GN.egnn_init(wl.cfg, gen(155), device=dev).tree()
+    train_case("egnn molecule 128x30", wl, params, eb, TWk._gnn_model_flops(
+        "egnn", wl.cfg, eb["feats"].shape[0], eb["src"].shape[0], None))
+    wl = TWk.build_workload("dimenet", "molecule", None)
+    db = GD.molecule_batch(n_graphs=128, n_atoms=30, seed=5,
+                           n_species=wl.cfg.n_species, device=dev)
+    db.pop("n_graphs")
+    params = GN.dimenet_init(wl.cfg, gen(156), device=dev).tree()
+    train_case("dimenet molecule 128x30", wl, params, db,
+               TWk._gnn_model_flops("dimenet", wl.cfg, db["species"]
+                                    .shape[0], db["src"].shape[0], db))
+    del params
+    free("the GNNs")
+
+    # -- (d) DLRM RM2, train_batch, dense AdamW ------------------------------
+    wl = TWk.build_workload("dlrm-rm2", "train_batch", None,
+                            cfg_changes={"vocab": P15_RM2_ROWS})
+    rcfg = wl.cfg
+    log15("dlrm cuts", {"cuts": wl.meta["cuts"], "full_rows":
+                        GC.get("dlrm-rm2").full().vocab, "batch":
+                        wl.meta["batch"], "params": rcfg.param_count(),
+                        "model_flops": wl.meta["model_flops"]})
+    model = DL.dlrm_init(rcfg, gen(157), device=dev)
+    params = model.tree()
+    del model
+    rb = GD.dlrm_batch(rcfg, wl.meta["batch"], seed=5, device=dev)
+    opt = adamw_init(wl.opt_cfg, params)
+    # float64 MLPs over the same float32 tables (the gather is exact)
+    p64 = {"tables": params["tables"],
+           **{k: tree_map(f64, params[k]) for k in ("bot", "top")}}
+    _, g, row = f64_grads("dlrm-rm2 train_batch", wl, params, p64, rb, rb)
+    row["state_gb"] = sum(t.numel() * t.element_size()
+                          for t in leaves((params, opt))) / 1e9
+    log15("dlrm-rm2 gradients", row)
+    del g, p64
+    free()
+    ft = driver(wl, "dlrm")
+    state = (params, opt)
+    for step in range(1, P15_STEPS + 1):
+        twin = tree_map(torch.clone, state)
+        state, m, row = step_row(ft, state, rb, wl.meta["model_flops"])
+        twin, m2 = ft.step_fn(twin, rb)
+        same = same_bits(state, twin) and float(m["loss"]) == \
+            float(m2["loss"])
+        row.update(step=step, bitwise_repeat=same)
+        log15(f"dlrm-rm2 step {step}", row)
+        if not same:
+            raise RuntimeError(f"phase 15 dlrm-rm2: step {step} is not "
+                               f"bitwise on its repeat")
+        del twin
+        free()
+    log15("dlrm-rm2 driver", ft_ok(ft, "dlrm-rm2"))
+    del state, ft, params, opt, rb
+    free("DLRM RM2 training")
+
+    # -- (e) the entry point ---------------------------------------------
+    def main_run(args):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = TTrain.main(args)
+        text = out.getvalue()
+        line = [ln for ln in text.splitlines() if ln.startswith("[train]")]
+        if rc != 0 or len(line) != 1 or "retries=0" not in line[0]:
+            raise RuntimeError(f"phase 15: launch.train.main {args}: rc "
+                               f"{rc}, {text[-2000:]}")
+        return text, time.perf_counter() - t0
+
+    def run_dir(name):
+        return str(root / name)
+
+    smoke = ["--arch", "llama3.2-3b", "--shape", "train_4k", "--smoke",
+             "--ckpt-every", "2"]
+    t_a, s_a = main_run(smoke + ["--steps", "4", "--ckpt-dir",
+                                 run_dir("resume")])
+    t_r, s_r = main_run(smoke + ["--steps", "6", "--resume", "--ckpt-dir",
+                                 run_dir("resume")])
+    t_u, s_u = main_run(smoke + ["--steps", "6", "--ckpt-dir",
+                                 run_dir("straight")])
+    if "resumed from step 4" not in t_r:
+        raise RuntimeError(f"phase 15: --resume did not resume: {t_r}")
+    da = Path(run_dir("resume")) / "step_0000000006"
+    dbb = Path(run_dir("straight")) / "step_0000000006"
+    names = sorted(p.name for p in da.iterdir())
+    same = names == sorted(p.name for p in dbb.iterdir()) and all(
+        (da / n).read_bytes() == (dbb / n).read_bytes() for n in names)
+    row = {"lines": [ln for t in (t_a, t_r, t_u) for ln in t.splitlines()],
+           "walls_s": [s_a, s_r, s_u], "checkpoint_files": len(names),
+           "resumed_bitwise_uninterrupted": same, "card": card}
+    log15("main llama3.2-3b resume", row)
+    if not same:
+        raise RuntimeError("phase 15: the resumed run's checkpoint differs "
+                           "from the uninterrupted run's")
+    for arch, shape in (("gat-cora", "full_graph_sm"),
+                        ("dlrm-rm2", "train_batch")):
+        text, s = main_run(["--arch", arch, "--shape", shape, "--smoke",
+                            "--steps", "2", "--ckpt-dir", run_dir(arch)])
+        log15(f"main {arch}", {"lines": text.splitlines(), "wall_s": s,
+                               "card": card})
+    shutil.rmtree(root, ignore_errors=True)
+    if counts() != launches_before:
+        raise RuntimeError("phase 15: the training path launched a kernel "
+                           "of the port")
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+    record["phase15"] = rows
+    record["phase15_s"] = time.perf_counter() - t15
+    return rows
+
+
+def _split15(out):
+    params, opt_state, metrics = out
+    return (params, opt_state), metrics
 
 
 def main(argv) -> int:
@@ -4251,6 +4870,9 @@ def main(argv) -> int:
     log(f"phase 14: {phase14_s:.1f} s")
     record["phase14"] = phase14_rows
     record["phase14_s"] = phase14_s
+
+    # Phase 15: training, after phase 14's memory is freed
+    phase15(torch, dev, card, record, log, bits, reset_peak)
 
     # the contract's kernel line: times of the weighted-PageRank round with
     # every source active (the push− main path's shapes)

@@ -21,6 +21,14 @@ scalars; ``None`` holds no leaf.  ``restore_checkpoint`` puts each leaf on
 the device and dtype of the matching tensor of ``tree_like``, so a carry on
 the card is restored onto the card; a leaf whose ``tree_like`` counterpart
 is not a tensor comes back as the numpy array that was saved.
+
+A bfloat16 leaf is written as the reference writes it, without
+``ml_dtypes``: its 16-bit words as ``'<V2'`` records in the ``.npy``
+files and ``"dtype": "bfloat16"`` in the manifest, byte for byte the
+reference's files.  It is read back by viewing the 2-byte words as
+``torch.bfloat16`` (a leaf whose ``tree_like`` counterpart is not a
+tensor comes back as a bfloat16 tensor on the CPU), so the port restores
+its own bfloat16 leaves and the reference's bitwise.
 """
 from __future__ import annotations
 
@@ -33,44 +41,38 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.tree import flatten_with_paths as _flatten_with_paths
+from repro_torch.tree import unflatten
+
 _CHUNK_BYTES = 256 * 1024 * 1024      # 256MB row-chunks
-
-
-def _flatten_with_paths(tree, prefix=()):
-    """[(key, leaf)] in the reference's leaf order and key format."""
-    if tree is None:
-        return []
-    if isinstance(tree, (tuple, list)):
-        items = enumerate(tree)
-    elif isinstance(tree, dict):
-        items = ((k, tree[k]) for k in sorted(tree))
-    else:
-        return [("/".join(str(p) for p in prefix), tree)]
-    out = []
-    for k, sub in items:
-        out += _flatten_with_paths(sub, prefix + (k,))
-    return out
-
-
-def _unflatten(tree_like, leaves):
-    """``tree_like``'s structure with its leaves taken in order from the
-    iterator ``leaves``."""
-    if tree_like is None:
-        return None
-    if isinstance(tree_like, (tuple, list)):
-        return type(tree_like)(_unflatten(t, leaves) for t in tree_like)
-    if isinstance(tree_like, dict):
-        vals = {k: _unflatten(tree_like[k], leaves) for k in sorted(tree_like)}
-        return {k: vals[k] for k in tree_like}
-    return next(leaves)
+# A bfloat16 leaf on the host: its 16-bit words as 2-byte void records,
+# the ``.npy`` descr the reference's ml_dtypes bfloat16 arrays carry.
+_BF16_DESCR = "<V2"
+_BF16_HOST = np.dtype("V2")
 
 
 def _host(leaf) -> np.ndarray:
     """A host copy of one leaf, never a view of memory the caller may
     still write to."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_HOST)
+        return t.numpy()
     return np.array(leaf)
+
+
+def _save_npy(path: str, arr: np.ndarray):
+    """``np.save``, with a bfloat16 leaf's header naming ``'<V2'`` as the
+    reference's does (numpy alone would write ``'|V2'``)."""
+    if arr.dtype != _BF16_HOST:
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": _BF16_DESCR, "fortran_order": False,
+                "shape": arr.shape})
+        f.write(arr.tobytes(order="C"))
 
 
 def save_checkpoint(directory: str, step: int, tree: Any,
@@ -88,7 +90,7 @@ def save_checkpoint(directory: str, step: int, tree: Any,
         chunks = []
         if arr.ndim == 0:
             fname = f"leaf{i:04d}_c0.npy"
-            np.save(os.path.join(tmp, fname), arr)
+            _save_npy(os.path.join(tmp, fname), arr)
             chunks.append({"file": fname, "rows": [0, 1]})
         else:
             rows = max(1, _CHUNK_BYTES // max(
@@ -96,10 +98,11 @@ def save_checkpoint(directory: str, step: int, tree: Any,
             for c0 in range(0, arr.shape[0], rows):
                 c1 = min(c0 + rows, arr.shape[0])
                 fname = f"leaf{i:04d}_c{c0}.npy"
-                np.save(os.path.join(tmp, fname), arr[c0:c1])
+                _save_npy(os.path.join(tmp, fname), arr[c0:c1])
                 chunks.append({"file": fname, "rows": [int(c0), int(c1)]})
         manifest["leaves"].append({
-            "key": key, "shape": list(arr.shape), "dtype": str(arr.dtype),
+            "key": key, "shape": list(arr.shape),
+            "dtype": "bfloat16" if arr.dtype == _BF16_HOST else str(arr.dtype),
             "chunks": chunks})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -121,11 +124,25 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _device_leaves(devices, tree_like) -> list:
+    """One target device (or None) per leaf of ``tree_like``: ``devices``
+    is None, one device, or a tree of devices shaped like it."""
+    n = len(_flatten_with_paths(tree_like))
+    if devices is None or isinstance(devices, (str, torch.device)):
+        return [None if devices is None else torch.device(devices)] * n
+    flat = [torch.device(d) for _, d in _flatten_with_paths(devices)]
+    if len(flat) != n:
+        raise ValueError(f"{len(flat)} devices for {n} leaves")
+    return flat
+
+
 def restore_checkpoint(directory: str, tree_like: Any,
-                       step: Optional[int] = None):
+                       step: Optional[int] = None, devices: Any = None):
     """Restore into the structure of ``tree_like``, each leaf on the device
     and dtype of the matching tensor of ``tree_like`` (the device may
-    differ from the one that saved).  Returns (tree, step, extra)."""
+    differ from the one that saved), or on ``devices`` (one device, or a
+    tree of devices shaped like ``tree_like``) where given for a tensor
+    leaf.  Returns (tree, step, extra)."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -133,21 +150,30 @@ def restore_checkpoint(directory: str, tree_like: Any,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
+    targets = _device_leaves(devices, tree_like)
     out = []
-    for key, like in _flatten_with_paths(tree_like):
+    for (key, like), target in zip(_flatten_with_paths(tree_like), targets):
         rec = by_key[key]
-        arr = np.empty(rec["shape"], dtype=rec["dtype"])
+        bf16 = rec["dtype"] == "bfloat16"
+        arr = np.empty(rec["shape"], dtype=_BF16_HOST if bf16
+                       else rec["dtype"])
         for ch in rec["chunks"]:
             data = np.load(os.path.join(path, ch["file"]))
+            if bf16:
+                data = data.view(_BF16_HOST)
             if arr.ndim == 0:
                 arr = data
             else:
                 arr[ch["rows"][0]:ch["rows"][1]] = data
+        if bf16:
+            arr = torch.from_numpy(arr.copy(order="C").view(
+                np.int16)).view(torch.bfloat16)
         if isinstance(like, torch.Tensor):
-            arr = torch.from_numpy(arr).to(device=like.device,
-                                           dtype=like.dtype)
+            if not isinstance(arr, torch.Tensor):
+                arr = torch.from_numpy(arr)
+            arr = arr.to(device=target or like.device, dtype=like.dtype)
         out.append(arr)
-    restored = _unflatten(tree_like, iter(out))
+    restored = unflatten(tree_like, out)
     return restored, manifest["step"], manifest.get("extra", {})
 
 
@@ -178,7 +204,7 @@ class CheckpointManager:
     def save_async(self, step: int, tree: Any, extra: Optional[dict] = None):
         self.wait()
         leaves = [_host(leaf) for _, leaf in _flatten_with_paths(tree)]
-        host_tree = _unflatten(tree, iter(leaves))
+        host_tree = unflatten(tree, leaves)
 
         def work():
             try:
@@ -191,6 +217,7 @@ class CheckpointManager:
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
 
-    def restore_latest(self, tree_like):
+    def restore_latest(self, tree_like, devices: Any = None):
         self.wait()
-        return restore_checkpoint(self.directory, tree_like)
+        return restore_checkpoint(self.directory, tree_like,
+                                  devices=devices)

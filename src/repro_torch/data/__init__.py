@@ -1,4 +1,4 @@
 """Data generators of the port: the GNN and recsys smoke paths' seeded
-batches (``graphs``).  The reference's token stream comes with the
-training part of the ML stack (ROADMAP Queue 1, item 12c)."""
+batches (``graphs``) and the LM token stream (``tokens``)."""
 from repro_torch.data import graphs
+from repro_torch.data.tokens import TokenStream, host_batch

@@ -21,8 +21,10 @@ initialised tree; ``device=None`` is the CUDA card (``RuntimeError``
 without one), ``"cpu"`` runs on the CPU.  ``dlrm_forward`` / ``dlrm_loss``
 / ``dlrm_user_vector`` / ``dlrm_retrieval_scores`` take the model where
 the reference takes its params.  Parameters are made with
-``requires_grad=False``: this slice runs forwards and loss values, and
-gradients come with the training slice.
+``requires_grad=False``; ``trainable()`` turns them on for a training
+step.  The tables' gradient is dense, as the reference's is: the
+gather's backward sums each looked-up row's cotangents into a zero
+[n_sparse, vocab, dim] tensor, and AdamW then updates every row.
 """
 from __future__ import annotations
 
@@ -35,8 +37,9 @@ import torch
 
 from repro_torch.graph.structure import resolve_device
 from repro_torch.kernels.embedding_bag import _wrap_indices
-from repro_torch.models.gnn import _init_mlp, _map_tree, _mlp, _tree_of
-from repro_torch.models.transformer import Params, _from_numpy
+from repro_torch.models.gnn import _init_mlp, _mlp
+from repro_torch.models.transformer import Params, _from_numpy, _tree_of
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,14 +194,16 @@ class DLRM(Params):
         return dlrm_retrieval_scores(self.cfg, self, dense, sparse_idx,
                                      cand_emb)
 
-    def tree(self) -> dict:
-        """The parameter tree as nested dicts and lists of tensors."""
-        return _tree_of(self)
+    def tree(self, live: bool = False) -> dict:
+        """The parameter tree as nested dicts and lists of tensors
+        (detached, sharing the parameters' storage; with ``live`` the
+        parameters themselves)."""
+        return _tree_of(self, live)
 
     def to_device(self, device) -> "DLRM":
         """The same weights copied to ``device`` (a new model)."""
         dev = resolve_device(device)
-        return DLRM(self.cfg, _map_tree(lambda t: t.to(dev), self.tree()))
+        return DLRM(self.cfg, tree_map(lambda t: t.to(dev), self.tree()))
 
     def cast(self, dtype: str, tables: bool = True) -> "DLRM":
         """The same weights held in ``dtype`` (a new model): every leaf, or
@@ -208,7 +213,7 @@ class DLRM(Params):
         without a float64 copy of the tables (53 GB at RM2's full size)."""
         dt = getattr(torch, dtype)
         tree = self.tree()
-        out = {k: _map_tree(lambda t: t.to(dt), v) for k, v in tree.items()
+        out = {k: tree_map(lambda t: t.to(dt), v) for k, v in tree.items()
                if k != "tables"}
         out["tables"] = tree["tables"].to(dt) if tables else tree["tables"]
         cfg = dataclasses.replace(self.cfg, dtype=dtype) if tables \
@@ -220,5 +225,5 @@ def load_reference_params(cfg: DLRMConfig, tree: dict, device=None) -> DLRM:
     """A model holding the reference's ``dlrm_init(cfg, key)`` tree with
     numpy leaves (``jax.tree.map(np.asarray, params)``)."""
     dev = resolve_device(device)
-    return DLRM(cfg, _map_tree(lambda a: _from_numpy(np.asarray(a), dev),
-                               tree))
+    return DLRM(cfg, tree_map(lambda a: _from_numpy(np.asarray(a), dev),
+                              tree))

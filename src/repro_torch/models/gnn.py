@@ -19,9 +19,9 @@ generator, device=None)`` from the reference's distributions or by
 initialised tree; ``device=None`` is the CUDA card (``RuntimeError``
 without one), ``"cpu"`` runs on the CPU.  ``*_forward`` / ``*_loss`` take
 the model where the reference takes its params, with the reference's
-arguments.  Parameters are made with ``requires_grad=False``: this slice
-runs forwards and loss values, and gradients come with the training
-slice.
+arguments.  Parameters are made with ``requires_grad=False``;
+``trainable()`` turns them on for a training step, and every forward
+and loss, the vertex-cut ones included, is differentiable.
 
 The vertex-cut forwards (``mgn_forward_dist``, ``egnn_forward_dist`` and
 their losses) take the k per-shard inputs and a ``ShardMesh`` where the
@@ -45,7 +45,8 @@ from torch import nn
 from repro_torch.graph import segment
 from repro_torch.graph.partition import check_mesh
 from repro_torch.graph.structure import resolve_device
-from repro_torch.models.transformer import Params, _from_numpy
+from repro_torch.models.transformer import Params, _from_numpy, _tree_of
+from repro_torch.tree import tree_map
 
 
 def _normal(gen, shape, device, scale: float) -> torch.Tensor:
@@ -283,12 +284,14 @@ def _shards(mesh, *per_shard):
 
 
 def _replicas(params, devs) -> list:
-    """The weights on each shard's device (one copy per distinct device)."""
+    """The weights on each shard's device (one copy per distinct device,
+    a tree of differentiable copies, so each shard's gradient flows back
+    to the one set of weights)."""
     copies = {}
     for d in devs:
         if d not in copies:
-            copies[d] = params if params.device == d \
-                else params.to_device(d)
+            copies[d] = params if params.device == d else tree_map(
+                lambda t, d=d: t.to(d), params.tree(live=True))
     return [copies[d] for d in devs]
 
 
@@ -590,37 +593,23 @@ class GNN(Params):
     def loss(self, batch):
         return _KINDS[type(self.cfg)][1](self.cfg, self, batch)
 
-    def tree(self) -> dict:
-        """The parameter tree as nested dicts and lists of tensors."""
-        return _tree_of(self)
+    def tree(self, live: bool = False) -> dict:
+        """The parameter tree as nested dicts and lists of tensors
+        (detached, sharing the parameters' storage; with ``live`` the
+        parameters themselves)."""
+        return _tree_of(self, live)
 
     def to_device(self, device) -> "GNN":
         """The same weights copied to ``device`` (a new model)."""
         dev = resolve_device(device)
-        return GNN(self.cfg, _map_tree(lambda t: t.to(dev), self.tree()))
+        return GNN(self.cfg, tree_map(lambda t: t.to(dev), self.tree()))
 
     def cast(self, dtype: str) -> "GNN":
         """The same weights held in ``dtype`` (a new model, e.g. float64 to
         measure the float32 forward's rounding)."""
         dt = getattr(torch, dtype)
         return GNN(dataclasses.replace(self.cfg, dtype=dtype),
-                   _map_tree(lambda t: t.to(dt), self.tree()))
-
-
-def _tree_of(p):
-    if isinstance(p, nn.ModuleList):
-        return [_tree_of(c) for c in p]
-    out = {name: t.detach() for name, t in p._parameters.items()}
-    out.update({name: _tree_of(m) for name, m in p._modules.items()})
-    return out
-
-
-def _map_tree(fn, tree):
-    if isinstance(tree, list):
-        return [_map_tree(fn, x) for x in tree]
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
+                   tree_map(lambda t: t.to(dt), self.tree()))
 
 
 def load_reference_params(cfg, tree: dict, device=None) -> GNN:
@@ -628,5 +617,5 @@ def load_reference_params(cfg, tree: dict, device=None) -> GNN:
     leaves (``jax.tree.map(np.asarray, params)``); ``cfg`` is the port's
     config of the same fields, and picks the model."""
     dev = resolve_device(device)
-    return GNN(cfg, _map_tree(lambda a: _from_numpy(np.asarray(a), dev),
-                              tree))
+    return GNN(cfg, tree_map(lambda a: _from_numpy(np.asarray(a), dev),
+                             tree))

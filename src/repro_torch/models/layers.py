@@ -17,14 +17,16 @@ The port of ``repro.models.layers``.  Conventions:
     the offset and writes early.
 
 The reference's sharding annotations (``shard_hint``, the ``*_specs``
-trees) have no counterpart: ``hint_axes``, ``remat`` and ``loop_impl``
-stay in ``LMConfig`` for parity and change no result here.  No kernel of
+trees) have no counterpart: ``hint_axes`` and ``loop_impl`` stay in
+``LMConfig`` for parity and change no result here; ``remat="full"``
+recomputes each layer in the backward (``models.transformer``).  No kernel of
 ``kernels/`` runs here: the reference's model calls none either (its
 attention is its own online-softmax scan over KV tiles).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -89,7 +91,7 @@ class LMConfig:
     mla_decode: str = "auto"          # "auto" | "absorbed" | "expanded"
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
-    remat: str = "full"               # "full" | "none" (no effect here)
+    remat: str = "full"               # "full" | "none": per-layer recompute
     attn_impl: str = "chunked"        # "chunked" (online softmax) | "naive"
     kv_chunk: int = 1024              # KV tile for chunked attention
     # "scan" | "unroll": the reference's lax.scan or Python loops; one
@@ -304,20 +306,27 @@ def _kv_chunk_for(t: int, want: int) -> int:
 # ---------------------------------------------------------------------------
 # Flash-style chunked attention core: the online softmax over KV tiles,
 # one loop for every mode but "naive" (the reference's "chunked" flash
-# core and its "scan" / "unroll" body compute the same tile products; it
-# keeps both because its flash core sits under a custom VJP that
-# recomputes tiles in the backward, and gradients come with the training
-# slice).
+# core and its "scan" / "unroll" bodies compute the same tile products).
 #
-# Generic over a ``chunk_fn(idx) → (logits, v_tile)``:
+# Differentiated as the reference's custom VJP is: ``_FlashCore`` saves
+# only (primals, row max m, row sum l, out) and its backward recomputes
+# each KV tile's probabilities and takes that tile's VJP, so the [S, T]
+# probabilities are never held for the backward.  Without a gradient to
+# take (serving) the loop runs as a plain function.
+#
+# Generic over a ``chunk_fn(primals, idx) → (logits, v_tile)``:
 #   logits [..., R, KC] (float32 or wider), already masked (-inf), already
 #   scaled; v_tile [..., KC, DV] with the same leading dims.
-# A fully masked tile leaves the running max at -inf; its probabilities
-# and the rescale ``alpha`` are then guarded to 0, never NaN.
+# GQA's primals are (q, k, v, q_pos); MLA's (q_nope, q_rope, c_kv, k_r,
+# wuk, wuv, q_pos), so the latent up-projections' gradients come out of
+# the same tile VJPs.  A fully masked tile leaves the running max at
+# -inf; its probabilities and the rescale ``alpha`` are then guarded to
+# 0, never NaN.
 # ---------------------------------------------------------------------------
 
 def _flash_fwd_scan(chunk_fn, n_chunks):
-    """The softmax-weighted sum of the tiles' values, [..., R, DV]."""
+    """The softmax-weighted sum of the tiles' values [..., R, DV], the row
+    max m and the row sum l [..., R] of ``chunk_fn(idx)``'s tiles."""
     m = l = acc = None
     for idx in range(n_chunks):
         logits, v_c = chunk_fn(idx)
@@ -334,19 +343,79 @@ def _flash_fwd_scan(chunk_fn, n_chunks):
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.matmul(p, v_c)
         m = m_new
-    return acc / torch.clamp(l, min=1e-30)[..., None]
+    return acc / torch.clamp(l, min=1e-30)[..., None], m, l
 
 
-def _gqa_chunk(kc, chunk, scale, qr, k, v, q_pos, idx):
-    """Tile logits [b, hkv, g·s, kc] of the grouped queries qr [b, s, hkv,
-    g, d] (each KV head's g query heads as g·s rows) and the tile's
-    values [b, hkv, kc, d], each KV head once."""
-    b, s, hkv, g, _ = qr.shape
+class _FlashCore(torch.autograd.Function):
+    """``_flash_fwd_scan`` over ``chunk_fn(primals, idx)`` with the
+    reference's tile-recomputing backward (``_flash_core_bwd``): with
+    dG = dout / l and dL = −Σ dout·out / l, each tile's unnormalised
+    probabilities p = exp(logits − m) are recomputed and the VJP of
+    (p·v, Σ p) taken against (dG, dL); the primals' gradients are summed
+    over the tiles in float32 (float64 for a float64 model) and cast to
+    their dtypes once."""
+
+    @staticmethod
+    def forward(ctx, chunk_fn, n_chunks, *primals):
+        out, m, l = _flash_fwd_scan(lambda idx: chunk_fn(primals, idx),
+                                    n_chunks)
+        ctx.chunk_fn, ctx.n_chunks = chunk_fn, n_chunks
+        ctx.save_for_backward(*primals, m, l, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        *primals, m, l, out = ctx.saved_tensors
+        wrt = [i for i, need in enumerate(ctx.needs_input_grad[2:]) if need]
+        l_safe = torch.clamp(l, min=1e-30)
+        dout = dout.to(l.dtype)
+        d_g = dout / l_safe[..., None]
+        d_l = -torch.sum(dout * out, dim=-1) / l_safe
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        grads = [None] * len(primals)
+        for idx in range(ctx.n_chunks):
+            with torch.enable_grad():
+                pr = list(primals)
+                for i in wrt:
+                    pr[i] = primals[i].detach().requires_grad_(True)
+                logits, v_c = ctx.chunk_fn(pr, idx)
+                p = torch.exp(logits - m_safe[..., None])    # unnormalised
+                d_pr = torch.autograd.grad(
+                    (torch.matmul(p, v_c), p.sum(dim=-1)),
+                    [pr[i] for i in wrt], (d_g, d_l), allow_unused=True)
+            for i, g in zip(wrt, d_pr):
+                if g is not None:
+                    g = _wide(g)
+                    grads[i] = g if grads[i] is None else grads[i] + g
+        return (None, None, *[None if g is None else g.to(x.dtype)
+                              for g, x in zip(grads, primals)])
+
+
+def _flash_core(chunk_fn, n_chunks, primals):
+    """The attention of ``chunk_fn``'s tiles, through ``_FlashCore`` where
+    a gradient is to be taken, else the plain loop."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in primals if isinstance(t, torch.Tensor)):
+        return _FlashCore.apply(chunk_fn, n_chunks, *primals)
+    out, _, _ = _flash_fwd_scan(lambda idx: chunk_fn(primals, idx),
+                                n_chunks)
+    return out
+
+
+def _gqa_chunk(kc, chunk, scale, primals, idx):
+    """Tile logits [b, hkv, g·s, kc] of the queries q [b, s, h, d], each
+    KV head's g query heads grouped as g·s rows, and the tile's values
+    [b, hkv, kc, d], each KV head once."""
+    q, k, v, q_pos = primals
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qr = _wide(q.reshape(b, s, hkv, g, d))
     c0 = idx * kc
     k_c = _wide(k[:, c0:c0 + kc])
     v_c = _wide(v[:, c0:c0 + kc])
     logits = torch.einsum("bskgd,btkd->bkgst", qr, k_c) * scale
-    kpos = c0 + torch.arange(kc, device=qr.device)
+    kpos = c0 + torch.arange(kc, device=q.device)
     mask = _causal_mask(kpos, q_pos, chunk)
     logits = torch.where(mask[:, None, None], logits, -math.inf)
     return logits.reshape(b, hkv, g * s, kc), v_c.transpose(1, 2)
@@ -356,11 +425,11 @@ def _sdpa(q, k, v, q_pos, chunk, dtype, kv_chunk: int = 1024,
           impl: str = "chunked"):
     """Online-softmax attention over KV chunks (flash-style).
 
-    Never materializes [S, T] logits: peak extra memory is
-    O(B·H·S·kv_chunk).  Causal and chunked-local (llama4 iRoPE) masking
-    are computed per KV tile from positions.  ``impl``: "naive" (whole
-    logits); any other of the reference's modes ("chunked", "scan",
-    "unroll") runs the one online-softmax loop.
+    Never materializes [S, T] logits, forward or backward: peak extra
+    memory is O(B·H·S·kv_chunk).  Causal and chunked-local (llama4 iRoPE)
+    masking are computed per KV tile from positions.  ``impl``: "naive"
+    (whole logits, plain autograd); any other of the reference's modes
+    ("chunked", "scan", "unroll") runs the one online-softmax loop.
     """
     if impl == "naive":
         return _sdpa_naive(q, k, v, q_pos, chunk, dtype)
@@ -368,10 +437,8 @@ def _sdpa(q, k, v, q_pos, chunk, dtype, kv_chunk: int = 1024,
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     kc = _kv_chunk_for(t, kv_chunk)
-    qr = _wide(q.reshape(b, s, hkv, g, d))
-    out = _flash_fwd_scan(
-        lambda idx: _gqa_chunk(kc, chunk, 1.0 / math.sqrt(d), qr, k, v,
-                               q_pos, idx), t // kc)
+    chunk_fn = functools.partial(_gqa_chunk, kc, chunk, 1.0 / math.sqrt(d))
+    out = _flash_core(chunk_fn, t // kc, (q, k, v, q_pos))
     out = out.reshape(b, hkv, g, s, -1)
     return torch.movedim(out, 3, 1).reshape(b, s, h, -1).to(dtype)
 
@@ -457,9 +524,11 @@ def init_mla(cfg: LMConfig, gen, device):
     }
 
 
-def _mla_chunk(kc, scale, q_nope, q_rope, c_kv, k_r, wuk, wuv, q_pos, idx):
+def _mla_chunk(kc, scale, primals, idx):
     """Tile logits [b, h, s, kc] and values [b, h, kc, dv] for MLA: expands
-    the latent tile to per-head (k_nope, v) inside the tile."""
+    the latent tile to per-head (k_nope, v) inside the tile (the backward
+    recomputes it, and its VJP gives wuk's and wuv's gradients)."""
+    q_nope, q_rope, c_kv, k_r, wuk, wuv, q_pos = primals
     c0 = idx * kc
     c_c = _wide(c_kv[:, c0:c0 + kc])
     kr_c = _wide(k_r[:, c0:c0 + kc])
@@ -486,9 +555,9 @@ def _mla_sdpa_chunked(cfg, p, q_nope, q_rope, c_kv, k_r, q_pos, dt):
     t = c_kv.shape[1]
     kc = _kv_chunk_for(t, cfg.kv_chunk)
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    out = _flash_fwd_scan(
-        lambda idx: _mla_chunk(kc, scale, q_nope, q_rope, c_kv, k_r,
-                               p["wuk"], p["wuv"], q_pos, idx), t // kc)
+    out = _flash_core(functools.partial(_mla_chunk, kc, scale), t // kc,
+                      (q_nope, q_rope, c_kv, k_r, p["wuk"], p["wuv"],
+                       q_pos))
     return out.transpose(1, 2).to(dt)                     # [b,s,h,dv]
 
 

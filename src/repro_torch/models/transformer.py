@@ -13,8 +13,12 @@ reference stacks ``[L, …]`` leaves under ``lax.scan``; its scan groups
 only shape XLA's HLO).  Each layer holds only the FFN set it runs: the
 reference gives every layer of an MoE config both a dense and an MoE set
 to keep its scan leaves uniform, and ``load_reference_params`` drops the
-unused one.  Parameters are created with ``requires_grad=False``: this
-slice serves, and gradients come with the training slice.
+unused one.  Parameters are created with ``requires_grad=False``, so
+serving builds no autograd graph; ``trainable()`` turns on the
+floating-point leaves for a training step.  With ``cfg.remat == "full"``
+a forward that takes gradients recomputes each layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), where the reference applies
+``jax.checkpoint`` to its layer scan.
 
 ``init_params(cfg, generator, device=None)`` draws the reference's
 distributions from a ``torch.Generator``; ``device=None`` is the CUDA
@@ -30,11 +34,13 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.graph.structure import resolve_device
 from repro_torch.models import layers as Lyr
 from repro_torch.models.layers import LMConfig
+from repro_torch.tree import tree_map
 
 
 class Params(nn.Module):
@@ -58,6 +64,30 @@ class Params(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def trainable(self, on: bool = True):
+        """Every floating-point parameter set to take gradients (or, with
+        ``on=False``, not); returns the module."""
+        return _trainable(self, on)
+
+
+def _trainable(module: nn.Module, on: bool):
+    for p in module.parameters():
+        if p.dtype.is_floating_point:
+            p.requires_grad_(on)
+    return module
+
+
+def _tree_of(p, live: bool = False):
+    """A module's parameters as nested dicts (and lists for a
+    ``ModuleList``): detached tensors sharing their storage, or with
+    ``live`` the parameters themselves (gradients flow through them)."""
+    if isinstance(p, nn.ModuleList):
+        return [_tree_of(c, live) for c in p]
+    out = {name: t if live else t.detach()
+           for name, t in p._parameters.items()}
+    out.update({name: _tree_of(m, live) for name, m in p._modules.items()})
+    return out
 
 
 # Fields that change how the same weights run, not their shapes
@@ -118,12 +148,6 @@ def _from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _one_ffn(layer: dict, use_moe: bool) -> dict:
     """The layer's leaves without the FFN set it does not run."""
     return {k: v for k, v in layer.items()
@@ -141,15 +165,15 @@ def load_reference_params(cfg: LMConfig, tree: dict,
     def t(a):
         return _from_numpy(a, dev)
 
-    layers = [_map(lambda a, li=li: t(a[li]),
-                   _one_ffn(tree["layers"], _layer_pattern(cfg, li)[0]))
+    layers = [tree_map(lambda a, li=li: t(a[li]),
+                       _one_ffn(tree["layers"], _layer_pattern(cfg, li)[0]))
               for li in range(cfg.n_layers)]
     out = {"embed": t(tree["embed"]), "layers": layers,
            "ln_f": t(tree["ln_f"]), "unembed": t(tree["unembed"])}
     if cfg.mtp:
         out["mtp"] = {"proj": t(tree["mtp"]["proj"]),
-                      "layer": _map(t, _one_ffn(tree["mtp"]["layer"],
-                                                False))}
+                      "layer": tree_map(t, _one_ffn(tree["mtp"]["layer"],
+                                                    False))}
     return TransformerLM(cfg, out)
 
 
@@ -209,6 +233,18 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def tree(self, live: bool = False) -> dict:
+        """The parameter tree (``embed``, ``layers``, ``ln_f``,
+        ``unembed``, ``mtp``) as ``TransformerLM(cfg, tree)`` takes it:
+        detached tensors sharing the parameters' storage, or with
+        ``live`` the parameters themselves."""
+        return _tree_of(self, live)
+
+    def trainable(self, on: bool = True) -> "TransformerLM":
+        """Every floating-point parameter set to take gradients (or not);
+        returns the model."""
+        return _trainable(self, on)
+
     def with_config(self, **changes) -> "TransformerLM":
         """The same weights run under ``cfg`` with ``changes`` (fields of
         how they run: attention mode, MLA decode, KV tile, …)."""
@@ -240,14 +276,23 @@ class TransformerLM(nn.Module):
     def _run_layers(self, x, positions, cache=None,
                     offset: Optional[int] = None):
         cfg = self.cfg
+        remat = cache is None and cfg.remat == "full" \
+            and torch.is_grad_enabled()
         aux = x.new_zeros((), dtype=torch.float32)
         for li, lp in enumerate(self.layers):
             use_moe, glob = _layer_pattern(cfg, li)
             chunk = None if glob else cfg.attn_chunk
-            c = None if cache is None else {k: v[li]
-                                            for k, v in cache.items()}
-            x, a, _ = _layer_apply(cfg, lp, x, positions, chunk, use_moe,
-                                   c, offset)
+            if remat:
+                # the layer's activations are recomputed in the backward;
+                # only its input is held
+                x, a, _ = torch.utils.checkpoint.checkpoint(
+                    _layer_apply, cfg, lp, x, positions, chunk, use_moe,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                c = None if cache is None else {k: v[li]
+                                                for k, v in cache.items()}
+                x, a, _ = _layer_apply(cfg, lp, x, positions, chunk,
+                                       use_moe, c, offset)
             aux = aux + a
         return x, aux
 
@@ -263,12 +308,14 @@ class TransformerLM(nn.Module):
         return logits, aux, x
 
     def loss_fn(self, batch):
-        """Next-token cross entropy (+ MoE aux + optional MTP loss), as a
-        value.  A negative target is masked out."""
+        """Next-token cross entropy (+ MoE aux + optional MTP loss),
+        differentiable.  A negative target is masked out; token ids may be
+        int32 or int64."""
         cfg = self.cfg
-        tokens, targets = batch["tokens"], batch["targets"]
+        tokens, targets = batch["tokens"].long(), batch["targets"].long()
         logits, aux, x_final = self(tokens)
-        loss = _masked_nll(F.log_softmax(logits.float(), dim=-1), targets)
+        loss = _masked_nll(F.log_softmax(Lyr._wide(logits), dim=-1),
+                           targets)
         if cfg.mtp:
             # depth-1 MTP: predict token t+2 from [h_t ; emb(token t+1)]
             dt = Lyr._dt(cfg)
@@ -283,7 +330,7 @@ class TransformerLM(nn.Module):
                 "bsd,dv->bsv",
                 Lyr.rms_norm(h, self.ln_f.to(dt), cfg.norm_eps),
                 self.unembed.to(dt))
-            mtp_logp = F.log_softmax(mtp_logits[:, :-1].float(), dim=-1)
+            mtp_logp = F.log_softmax(Lyr._wide(mtp_logits[:, :-1]), dim=-1)
             # the token t+2 stream, targets[:, 1:][:, 1:] (the reference
             # overwrites its first choice of mtp_tgt with this one)
             mtp_tgt = targets[:, 2:]

@@ -286,14 +286,18 @@ def test_bounded_retry():
 
 
 def test_ft_config_defaults():
-    """The reference's retry budget; the fields of later slices are not
-    taken, so a caller who passes one learns it at once."""
+    """The reference's fields and defaults, the retry budget and the
+    training driver's checkpoint and straggler settings; a field the
+    reference does not have is not taken."""
     cfg = FTConfig()
     assert (cfg.max_retries, cfg.backoff_s) == (3, 0.05)
     assert [f.name for f in dataclasses.fields(FTConfig)] == [
-        "max_retries", "backoff_s"]
+        "ckpt_dir", "ckpt_every", "max_retries", "backoff_s",
+        "straggler_factor", "ewma_alpha"]
+    assert (cfg.ckpt_every, cfg.straggler_factor, cfg.ewma_alpha) == (
+        50, 3.0, 0.2)
     with pytest.raises(TypeError):
-        FTConfig(ckpt_every=10)
+        FTConfig(checkpoint_every=10)
 
 
 def test_quickstart_matches_oracle_on_every_engine():

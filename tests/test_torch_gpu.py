@@ -1892,3 +1892,163 @@ def test_embedding_bag_kernel_matches_dlrm_lookup_on_card(cuda_device):
                 assert bool(((got - want[:, f]).abs()
                              <= k * 2.0 ** -24 * rows).all()), f
     assert TEB.LAUNCHES["bag"] == 2 * model.cfg.n_sparse
+
+
+# ---------------------------------------------------------------------------
+# Training (launch/workloads.py, optim/adamw.py, the flash core's backward)
+# ---------------------------------------------------------------------------
+
+_TRAIN = {"llama3.2-3b": "train_4k", "gat-cora": "full_graph_sm",
+          "dlrm-rm2": "train_batch", "meshgraphnet": "full_graph_sm"}
+
+
+def _train_case(arch, device):
+    """The smoke workload of ``arch``, a seeded state on ``device`` and a
+    batch (the LM with ``remat="full"``, so the recompute runs)."""
+    import repro_torch.configs as TCF
+    from repro_torch.data import graphs as TDG
+    from repro_torch.data.tokens import host_batch
+    from repro_torch.launch import workloads as TW
+    from repro_torch.models import dlrm as TDL
+    from repro_torch.models import gnn as TGN
+    from repro_torch.models import transformer as TLM
+    from repro_torch.optim.adamw import adamw_init
+    changes = {"remat": "full"} if arch == "llama3.2-3b" else {}
+    wl = TW.build_workload(arch, _TRAIN[arch], None, smoke=True,
+                           cfg_changes=changes)
+    gen = torch.Generator().manual_seed(11)
+    kind = TCF.get(arch).kind
+    if kind == "lm":
+        model = TLM.init_params(wl.cfg, gen, device="cpu")
+        b = host_batch(wl.cfg.vocab, 4, 64, seed=5, step=0)
+    elif kind == "dlrm":
+        model = TDL.dlrm_init(wl.cfg, gen, device="cpu")
+        b = TDG.dlrm_batch(wl.cfg, 64, seed=5, device="cpu")
+    else:
+        init = {"gat": TGN.gat_init, "mgn": TGN.mgn_init}[kind]
+        model = init(wl.cfg, gen, device="cpu")
+        b = TDG.cora_batch(n=64, e=256, d_feat=wl.cfg.d_in, seed=5,
+                           device="cpu") if kind == "gat" else \
+            TDG.mesh_batch(6, 6, seed=5, device="cpu")
+    params = {k: v for k, v in model.tree().items()}
+    from repro_torch.tree import tree_map
+    params = tree_map(lambda t: t.to(device), params)
+    b = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+         for k, v in b.items()}
+    return wl, params, adamw_init(wl.opt_cfg, params), b
+
+
+def _state_bits(tree):
+    from repro_torch.tree import leaves
+    return [t.view(torch.int16) if t.dtype == torch.bfloat16 else
+            t.view(torch.int32) if t.dtype == torch.float32 else t
+            for t in leaves(tree)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(_TRAIN))
+def test_train_step_repeats_bitwise_on_card(cuda_device, arch):
+    """Two train steps from two copies of one state on the card: the
+    parameters, moments and loss bit for bit equal (the backward's
+    gathers sum in a fixed order under deterministic algorithms), and
+    within float32 summation of the step on the CPU."""
+    from repro_torch.tree import tree_map
+    wl, params, opt, b = _train_case(arch, cuda_device)
+    runs = []
+    for _ in range(2):
+        p = tree_map(torch.clone, params)
+        o = tree_map(torch.clone, opt)
+        runs.append(wl.step_fn(p, o, b))
+    (p1, o1, m1), (p2, o2, m2) = runs
+    assert all(torch.equal(x, y) for x, y in zip(
+        _state_bits((p1, o1)), _state_bits((p2, o2))))
+    assert float(m1["loss"]) == float(m2["loss"])
+    cpu = tree_map(lambda t: t.cpu(), (params, opt))
+    pc, oc, mc = wl.step_fn(*cpu, {k: v.cpu() if isinstance(
+        v, torch.Tensor) else v for k, v in b.items()})
+    torch.testing.assert_close(float(m1["loss"]), float(mc["loss"]),
+                               rtol=1e-5, atol=0)
+    from repro_torch.tree import leaves
+    for x, y in zip(leaves(o1["m"]), leaves(oc["m"])):
+        assert x.device.type == "cuda"
+        assert bool(((x.cpu() - y).abs() <= 1e-4 * (y.abs()
+                                                    + y.abs().max())).all())
+
+
+@pytest.mark.gpu
+def test_flash_gradients_equal_naive_on_card(cuda_device, monkeypatch):
+    """The smoke llama's gradients on the card through the flash core's
+    backward against naive attention's (the reference's bounds: loss
+    1e-4, gradients 5e-3)."""
+    import repro_torch.configs as TCF
+    from repro_torch.models import transformer as TLM
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = TCF.get("llama3.2-3b").smoke()
+    model = TLM.init_params(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+    model = TLM.TransformerLM(cfg, {**model.tree()}).to(cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(4))
+    b = {"tokens": toks[:, :-1].to(cuda_device),
+         "targets": toks[:, 1:].to(cuda_device)}
+    out = []
+    for m in (model.with_config(kv_chunk=16), model.with_config(
+            attn_impl="naive")):
+        m.trainable()
+        loss = m.loss_fn(b)
+        out.append((float(loss.detach()), torch.autograd.grad(
+            loss, list(m.parameters()))))
+        m.trainable(False)
+    (l1, g1), (l2, g2) = out
+    assert abs(l1 - l2) < 1e-4
+    assert max(float((a - c).abs().max()) for a, c in zip(g1, g2)) < 5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adamw_on_card_matches_cpu(cuda_device, state_dtype):
+    """Three AdamW updates of float32 and bfloat16 leaves on the card
+    against the CPU: float32 within rtol 1e-6, bfloat16 within one
+    bfloat16 step, ``step`` equal."""
+    from repro_torch.optim import adamw as TA
+    from repro_torch.tree import leaves, tree_map
+    cfg = TA.AdamWConfig(state_dtype=state_dtype, warmup_steps=2, lr=1e-2)
+    g = torch.Generator().manual_seed(8)
+    p = {"w": torch.randn((300, 70), generator=g),
+         "b": torch.randn((70,), generator=g).to(torch.bfloat16)}
+    st = TA.adamw_init(cfg, p)
+    pd, sd = tree_map(lambda t: t.to(cuda_device), (p, st))
+    for _ in range(3):
+        gr = {"w": torch.randn((300, 70), generator=g) * 3,
+              "b": torch.randn((70,), generator=g).to(torch.bfloat16)}
+        p, st, m = TA.adamw_update(cfg, p, gr, st)
+        pd, sd, md = TA.adamw_update(cfg, pd, tree_map(
+            lambda t: t.to(cuda_device), gr), sd)
+        assert int(sd["step"]) == int(st["step"])
+        torch.testing.assert_close(float(md["grad_norm"]),
+                                   float(m["grad_norm"]), rtol=1e-6, atol=0)
+        for x, y in zip(leaves((pd, sd["m"], sd["v"])),
+                        leaves((p, st["m"], st["v"]))):
+            assert x.device.type == "cuda" and x.dtype == y.dtype
+            x, y = x.cpu().double(), y.double()
+            if x.dtype == torch.bfloat16 or state_dtype == "bfloat16" \
+                    or y.shape == (70,):
+                assert bool(((x - y).abs() <= 2.0 ** -7 * y.abs()
+                             + 1e-30).all())
+            else:
+                torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "gat-cora", "dlrm-rm2"])
+def test_train_main_smoke_on_card(cuda_device, arch, tmp_path, capsys):
+    """``launch.train.main --smoke`` on the card, two steps, then resumed
+    to three; no retry."""
+    from repro_torch.launch import train as TTR
+    argv = ["--arch", arch, "--shape", _TRAIN[arch], "--smoke",
+            "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)]
+    assert TTR.main(argv + ["--steps", "2"]) == 0
+    assert TTR.main(argv + ["--steps", "3", "--resume"]) == 0
+    out = capsys.readouterr().out
+    assert "resumed from step 2" in out and "retries=0" in out
+    assert f"[train] arch={arch} shape={_TRAIN[arch]} steps=3" in out

@@ -2,8 +2,9 @@
 package (nor chip_smoke.py, nor the port's quickstart) imports ``jax`` or
 the JAX package ``repro``.  Both tests walk every file under
 ``src/repro_torch/``, ``launch/``, ``models/``, ``configs/`` and ``data/``
-included (the LM serving path's, the GNNs' and DLRM's files are checked
-to be among them).
+included (the LM serving path's, the GNNs', DLRM's and the training
+path's files are checked to be among them, and the training example with
+chip_smoke.py).
 ``launch.analytics`` needs no guard at import time, since its
 ``--dryrun`` runs the port's own ``repro_torch.launch.analytics_dryrun``,
 never the reference's."""
@@ -58,14 +59,19 @@ GNN_FILES = ["models/gnn.py", "data/__init__.py", "data/graphs.py",
              "configs/meshgraphnet.py", "configs/dimenet.py"]
 # DLRM's files.
 DLRM_FILES = ["models/dlrm.py", "configs/dlrm_rm2.py"]
+# The training path's files.
+TRAIN_FILES = ["optim/__init__.py", "optim/adamw.py", "optim/compress.py",
+               "tree.py", "data/tokens.py", "runtime/ft.py",
+               "launch/workloads.py", "launch/train.py",
+               "checkpoint/ckpt.py"]
 
 
 def test_no_jax_or_reference_imports_in_sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "examples" /
-                                         "quickstart_torch.py"]
-    assert {PKG / f for f in LM_FILES + GNN_FILES + DLRM_FILES} <= \
-        set(files)
+    files = sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+        ROOT / "examples" / "train_gnn_torch.py"]
+    assert {PKG / f for f in LM_FILES + GNN_FILES + DLRM_FILES
+            + TRAIN_FILES} <= set(files)
     bad = []
     for f in files:
         for m in _BAD.finditer(f.read_text()):
