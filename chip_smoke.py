@@ -320,6 +320,31 @@ libraries at once, into ``build/repro_torch/``), and then
    TFLOP/s on the wall (6·N·tokens for the LM, the reference workloads'
    model FLOPs for the others), loss, gradient norm, learning rate, the
    peak device memory and the card.
+16. serves through ``launch/workloads.py``'s ``build_workload(...).step_fn``
+   at full width (the serving kinds; no kernel of the port launches, as
+   the reference's serving path reaches none): (a) llama3.2-3B
+   ``prefill_32k`` at S 32,768, batch 2, depth 4 (cut from 32 and 28),
+   the step bitwise the direct ``TransformerLM.prefill`` and its own
+   repeat (logits and the written cache); (b) ``decode_32k`` at batch 8,
+   its cache filled by (a)'s step two rows at a time over 32,736 tokens,
+   32 decode steps, each the direct ``decode_step``, then the step twice
+   from the same cache slot (``pos`` a 0-dim tensor), all bitwise; beside
+   it phase 12's per-layer decode check at S 32,768 on one row, float64,
+   first and last layer; (c) its ``kvq`` variant at batch 16 from (b)'s
+   rows quantized; (d) deepseek-v3 ``decode_32k`` at full width, depth 4,
+   at the largest power-of-two batch ≤ 128 whose peak reckoned on
+   ``meta`` (``launch.dryrun.reckon``) is ≤ 70 GB, its MLA cache seeded
+   random; (e) RM2 ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``
+   uncut on phase 14's model and tables (run inside phase 14), bitwise
+   phase 14's direct forward and scores; (f) ``python -m
+   repro_torch.launch.dryrun`` for each production mesh, two child
+   processes on the CPU started after the build and waited for here
+   (``--both-meshes`` in two halves): 80 records, 72
+   ``ok`` and 8 ``skipped``, one line per cell with
+   ``benchmarks/roofline.derive``'s dominant term, useful-FLOP share and
+   the cell's seconds.  Each serving line gives the step's wall (host
+   clock to a synchronize), tokens per second, the peak device memory,
+   the cuts and the card.
 
 Any failure raises and exits non-zero.  The line before the last holds the
 card's name and power limit; the ``kernels`` line before it the per-kernel
@@ -328,6 +353,7 @@ numbers; the last line is the JSON result.  Details also go to
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -854,7 +880,7 @@ def phase15(torch, dev, card, record, log, bits, reset_peak):
         if mesh_wl is not None:
             dloss, dg = mesh_wl.grad_fn(params, mesh_batch)
             dshare, derr = grad_share(dg, g, SHARD_GRAD_TOL)
-            row.update(shards=mesh_wl.meta["shards"], shard_loss=
+            row.update(shards=len(mesh_batch), shard_loss=
                        float(dloss), shard_worst_over_limit=dshare,
                        shard_max_abs_err=derr)
             if dshare > 1.0 or abs(float(dloss) - float(loss)) > \
@@ -1036,6 +1062,456 @@ def _split15(out):
     return (params, opt_state), metrics
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the serving kinds of launch/workloads.py at full width, and the
+# model cells' dry-run (launch/dryrun.py).
+# ---------------------------------------------------------------------------
+
+# (a)–(c) llama3.2-3B at full width, cut from 28 layers to P16_LM_LAYERS:
+# a 2-row prefill at S 32,768 spends ≈ 1.4 s a layer in its float32
+# attention tiles, and (a) and (b) run seven of them.  (a) prefill_32k at
+# batch 2 (cut from 32), three times: the direct call, the workload's
+# step, its repeat.  (b) decode_32k at batch 8 (cut from 128): its cache
+# filled by (a)'s prefill step two rows at a time over P16_PROMPT tokens,
+# then P16_STEPS decode steps; the per-layer decode check of phase 12 at
+# S 32,768 on one row for the first and the last layer, in float64.  (c)
+# its kvq variant at batch 16, the int8 cache (b)'s prefilled rows
+# quantized by the model's own rule, twice over, then P16_KVQ_STEPS
+# steps.  (d) deepseek-v3 decode_32k at full width, depth 4 (phase 12's
+# cut), at the largest power-of-two batch ≤ 128 whose reckoned peak
+# (weights, cache and the Reckoner's peak of the step on meta) is at most
+# P16_PEAK_GB, its MLA cache seeded random (a prefill of 128 rows × 32k
+# would take minutes), P16_DEEPSEEK_STEPS steps.  Every decode step runs
+# the direct ``decode_step`` and the workload's step twice, on one cache
+# whose written slot is put back between them: logits and the slot
+# bitwise equal.
+P16_LM_LAYERS = 4
+P16_SEQ = 32_768
+P16_STEPS = 32
+P16_PROMPT = P16_SEQ - P16_STEPS
+P16_KVQ_STEPS = 8
+P16_DEEPSEEK_STEPS = 4
+P16_PEAK_GB = 70.0
+# (f): the dry-run children's wait, at most (they start after the build
+# and run beside phases 1–16 on the host's CPU).
+P16_DRYRUN_WAIT_S = 300
+CHILDREN = []
+
+
+def start_dryrun(out_dir: Path) -> dict:
+    """``python -m repro_torch.launch.dryrun`` for the (16, 16) and the
+    (2, 16, 16) mesh, one child process each (``--both-meshes`` in two
+    halves; on ``meta``, CPU only: the card is hidden from them), their
+    records and logs under ``out_dir``; phase 16 (f) waits for them."""
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (str(SRC), os.environ.get("PYTHONPATH"))
+                   if p))
+    procs, logs = [], []
+    for extra in ([], ["--multi-pod"]):
+        log_f = open(out_dir / f"dryrun{''.join(extra)}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+             str(out_dir)] + extra, cwd=ROOT, env=env, stdout=log_f,
+            stderr=subprocess.STDOUT))
+        logs.append(log_f)
+    CHILDREN.extend(procs)
+    return {"procs": procs, "out": out_dir, "logs": logs,
+            "t0": time.perf_counter()}
+
+
+def stop_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def _same_bits(torch, a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(a.contiguous().view(torch.uint8),
+                    b.contiguous().view(torch.uint8)))
+
+
+def phase16_rm2(torch, dlrm, served, retrieval, card, log16):
+    """Phase 16 (e), inside phase 14: RM2's ``serve_p99``, ``serve_bulk``
+    and ``retrieval_cand`` through ``build_workload(...).step_fn`` on
+    phase 14's model and tables (no second copy), uncut: each output
+    bitwise phase 14's direct forward (the scores also the user vector's
+    product with the candidates), and bitwise on its repeat."""
+    from repro_torch.launch import workloads as TWk
+    tree = dlrm.tree()
+    for shape, (b, want) in served.items():
+        wl = TWk.build_workload("dlrm-rm2", shape)
+        got, ms = _timed(torch, lambda: wl.step_fn(tree, b["dense"],
+                                                   b["sparse"]))
+        again, ms2 = _timed(torch, lambda: wl.step_fn(tree, b["dense"],
+                                                      b["sparse"]))
+        row = {"case": f"dlrm-rm2 {shape}", "kind": wl.kind,
+               "batch": wl.meta["batch"], "cuts": wl.meta["cuts"],
+               "step_ms": ms, "repeat_ms": ms2,
+               "bitwise_direct": _same_bits(torch, got, want),
+               "bitwise_repeat": _same_bits(torch, got, again),
+               "shape": list(got.shape), "card": card}
+        log16("(e) serve", row)
+        if not (row["bitwise_direct"] and row["bitwise_repeat"]):
+            raise RuntimeError(f"phase 16 (e) {shape}: {json.dumps(row)}")
+    rb, cand, scores, user = retrieval
+    wl = TWk.build_workload("dlrm-rm2", "retrieval_cand")
+    args = (tree, rb["dense"], rb["sparse"], cand)
+    got, ms = _timed(torch, lambda: wl.step_fn(*args))
+    again, ms2 = _timed(torch, lambda: wl.step_fn(*args))
+    row = {"case": "dlrm-rm2 retrieval_cand", "kind": wl.kind,
+           "batch": wl.meta["batch"],
+           "n_candidates": wl.meta["n_candidates"], "cuts": wl.meta["cuts"],
+           "step_ms": ms, "repeat_ms": ms2,
+           "bitwise_direct": _same_bits(torch, got, scores),
+           "bitwise_user_dot": _same_bits(torch, got, user @ cand.T),
+           "bitwise_repeat": _same_bits(torch, got, again),
+           "shape": list(got.shape), "card": card}
+    log16("(e) retrieval", row)
+    if not (row["bitwise_direct"] and row["bitwise_user_dot"]
+            and row["bitwise_repeat"]):
+        raise RuntimeError(f"phase 16 (e) retrieval: {json.dumps(row)}")
+
+
+def phase16(torch, dev, card, record, log, dry, rows):
+    """Phase 16 (a)–(d) and (f) of the smoke (module docstring, item 16);
+    ``rows`` holds (e)'s, logged inside phase 14."""
+    import dataclasses as dc
+
+    import repro_torch.configs as GC
+    from repro_torch.kernels import edge_reduce as ER
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import segment_softmax as SS
+    from repro_torch.launch import dryrun as TDr
+    from repro_torch.launch import workloads as TWk
+    from repro_torch.models import layers as LL
+    from repro_torch.models import transformer as LT
+    from repro_torch.tree import leaves, tree_map
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    import roofline
+
+    t16 = time.perf_counter()
+
+    def log16(tag, row):
+        log(f"phase 16 {tag} " + json.dumps(row))
+        rows.append(dict(row, line=tag))
+
+    def counts():
+        return {"edge": dict(ER.LAUNCHES), "bag": dict(EB.LAUNCHES),
+                "softmax": dict(SS.LAUNCHES), "flash": dict(FA.LAUNCHES)}
+
+    launches_before = counts()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    def gb(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors) / 1e9
+
+    def lm_err(got, want, tol=LM_TOL):
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError("phase 16: non-finite values")
+        rtol, atol = tol
+        diff = (got.double() - want.double()).abs()
+        return float(diff.max()), float(
+            (diff / (atol + rtol * want.double().abs())).max())
+
+    def decode_run(label, wl, direct, tree, cache, tok, pos0, steps):
+        """``steps`` decode steps from ``pos0``: the direct call, its
+        written slot kept; the slot put back and the workload's step (pos
+        a 0-dim tensor on the card), then again.  Both steps' logits and
+        slot bitwise the direct call's; the next token the argmax."""
+        ms_direct, ms_step, ok = [], [], True
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(steps):
+            pos = pos0 + i
+            before = {k: v[:, :, pos].clone() for k, v in cache.items()}
+            (want, _), ms = _timed(torch, lambda: direct.decode_step(
+                tok, pos, cache))
+            ms_direct.append(ms)
+            wrote = {k: v[:, :, pos].clone() for k, v in cache.items()}
+            for _ in range(2):
+                for k, v in cache.items():
+                    v[:, :, pos] = before[k]
+                (got, _), ms = _timed(torch, lambda: wl.step_fn(
+                    tree, tok, torch.tensor(pos, dtype=torch.int32,
+                                            device=dev), cache))
+                ms_step.append(ms)
+                ok &= _same_bits(torch, got, want) and all(
+                    _same_bits(torch, cache[k][:, :, pos], wrote[k])
+                    for k in cache)
+            if not bool(torch.isfinite(want).all()):
+                raise RuntimeError(f"phase 16 {label}: non-finite logits")
+            tok = torch.argmax(want, dim=-1).to(torch.int32)
+        b = tok.shape[0]
+        step_ms = statistics.median(ms_step)
+        return {"case": label, "kind": wl.kind, "batch": b,
+                "layers": wl.cfg.n_layers, "cache_len": P16_SEQ,
+                "first_pos": pos0, "steps": steps, "cuts": wl.meta["cuts"],
+                "cache_gb": gb(cache.values()),
+                "decode_ms_per_step": step_ms,
+                "direct_ms_per_step": statistics.median(ms_direct),
+                "first_step_ms": ms_step[0],
+                "tokens_per_s": b / step_ms * 1e3,
+                "bitwise_direct_and_repeat": bool(ok),
+                "peak_gb": peak_gb(), "card": card}
+
+    def check(row):
+        if not row.get("bitwise_direct_and_repeat", True) or not all(
+                row.get(k, True) for k in ("bitwise_direct",
+                                            "bitwise_repeat")):
+            raise RuntimeError(f"phase 16 {row['case']}: "
+                               f"{json.dumps(row)}")
+
+    # (a) llama3.2-3B prefill_32k at batch 2, depth P16_LM_LAYERS
+    cut_layers = {"n_layers": P16_LM_LAYERS}
+    wl_a = TWk.build_workload("llama3.2-3b", "prefill_32k",
+                              shape_changes={"batch": 2},
+                              cfg_changes=cut_layers)
+    cfg = wl_a.cfg
+    torch.cuda.reset_peak_memory_stats()
+    model = LT.init_params(cfg, gen(160), device=dev)
+    tree = model.tree()
+    weights_gb = gb(leaves(tree))
+    toks = torch.randint(0, cfg.vocab, (2, P16_SEQ), generator=gen(161),
+                         device=dev, dtype=torch.int32)
+    runs = []
+    for name, fn in (("direct", lambda c: model.prefill(toks, c)),
+                     ("step", lambda c: wl_a.step_fn(tree, toks, c)),
+                     ("repeat", lambda c: wl_a.step_fn(tree, toks, c))):
+        cache = model.init_cache(2, P16_SEQ)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            (logits, cache), ms = _timed(torch, lambda: fn(cache))
+        runs.append((logits, cache, ms, peak_gb()))
+    (want, wcache, d_ms, _), (got, gcache, s_ms, s_peak), \
+        (again, acache, r_ms, _) = runs
+    row = {"case": "llama3.2-3B prefill_32k", "kind": wl_a.kind,
+           "batch": 2, "seq": P16_SEQ, "layers": cfg.n_layers,
+           "cuts": wl_a.meta["cuts"], "weights_gb": weights_gb,
+           "cache_gb": gb(gcache.values()), "direct_ms": d_ms,
+           "prefill_ms": s_ms, "repeat_ms": r_ms,
+           "tokens_per_s": 2 * P16_SEQ / s_ms * 1e3,
+           "model_tflops": wl_a.meta["model_flops"] / s_ms / 1e9,
+           "bitwise_direct": _same_bits(torch, got, want) and all(
+               _same_bits(torch, gcache[k], wcache[k]) for k in wcache),
+           "bitwise_repeat": _same_bits(torch, got, again) and all(
+               _same_bits(torch, gcache[k], acache[k]) for k in acache),
+           "finite": bool(torch.isfinite(got).all()),
+           "logits_max_abs": float(got.float().abs().max()),
+           "peak_gb": s_peak, "card": card}
+    log16("(a) prefill", row)
+    check(row)
+    if not row["finite"]:
+        raise RuntimeError("phase 16 (a): non-finite logits")
+    del runs, want, wcache, got, gcache, again, acache
+    free()
+
+    # the per-layer decode check at S 32,768 on one row, first and last
+    # layer, float64 (each layer's input from the bfloat16 forward)
+    one = torch.randint(0, cfg.vocab, (1, P16_SEQ), generator=gen(163),
+                        device=dev)
+    pos = torch.arange(P16_SEQ, device=dev)[None, :]
+    cfg64 = dc.replace(cfg, dtype="float64", param_dtype="float64")
+    last = cfg.n_layers - 1
+    layer_rows = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        x = model.embed[one].to(LL._dt(cfg))
+        for li, lp in enumerate(model.layers):
+            use_moe, glob = LT._layer_pattern(cfg, li)
+            chunk = None if glob else cfg.attn_chunk
+            if li in (0, last):
+                lp64 = LT.Params(tree_map(lambda t: t.double(),
+                                          tree["layers"][li]))
+                x64 = x.double()
+                c = {k: torch.zeros((1, P16_SEQ, cfg.n_kv_heads,
+                                     cfg.head_dim), dtype=torch.float64,
+                                    device=dev) for k in ("k", "v")}
+                LT._layer_apply(cfg64, lp64, x64[:, :-1], pos[:, :-1],
+                                chunk, use_moe, c, 0)
+                step, _, _ = LT._layer_apply(cfg64, lp64, x64[:, -1:],
+                                             pos[:, -1:], chunk, use_moe, c,
+                                             P16_SEQ - 1)
+                full, _, _ = LT._layer_apply(cfg64, lp64, x64, pos, chunk,
+                                             use_moe)
+                err = lm_err(step[:, 0], full[:, -1])
+                layer_rows.append({"layer": li, "max_abs_err": err[0],
+                                   "worst_over_limit": err[1]})
+                del lp64, x64, c, step, full
+            if li == last:
+                break
+            x, _, _ = LT._layer_apply(cfg, lp, x, pos, chunk, use_moe)
+    row = {"case": "llama3.2-3B layer decode at 32k, float64",
+           "seq": P16_SEQ, "layers_checked": layer_rows,
+           "tolerance": {"rtol": LM_TOL[0], "atol": LM_TOL[1]},
+           "s": time.perf_counter() - t0, "peak_gb": peak_gb(),
+           "card": card}
+    log16("(b) layer decode", row)
+    if not all(r["worst_over_limit"] <= 1.0 for r in layer_rows):
+        raise RuntimeError(f"phase 16 (b) layer decode: {json.dumps(row)}")
+    del x, one, pos
+    free()
+
+    # (b) decode_32k at batch 8: the cache filled by (a)'s prefill step,
+    # two rows at a time
+    wl_b = TWk.build_workload("llama3.2-3b", "decode_32k",
+                              shape_changes={"batch": 8},
+                              cfg_changes=cut_layers)
+    if wl_b.cfg != cfg:
+        raise RuntimeError("phase 16 (b): decode and prefill configs differ")
+    cache_b = model.init_cache(8, P16_SEQ)
+    prompts = torch.randint(0, cfg.vocab, (8, P16_PROMPT),
+                            generator=gen(162), device=dev,
+                            dtype=torch.int32)
+    firsts = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for r in range(0, 8, 2):
+        part = {k: v[:, r:r + 2] for k, v in cache_b.items()}
+        lg, _ = wl_a.step_fn(tree, prompts[r:r + 2], part)
+        firsts.append(lg)
+    torch.cuda.synchronize()
+    fill = {"fill_s": time.perf_counter() - t0, "fill_peak_gb": peak_gb(),
+            "fill_prompt": P16_PROMPT, "fill_rows_per_call": 2}
+    first_tok = torch.argmax(torch.cat(firsts), dim=-1).to(torch.int32)
+    # (c)'s int8 cache from these rows, before (b)'s steps write theirs
+    cache_c = {"k": [], "k_s": [], "v": [], "v_s": []}
+    with torch.no_grad():
+        for li in range(cfg.n_layers):
+            for name in ("k", "v"):
+                codes, scale = LL._quantize_int8(cache_b[name][li])
+                cache_c[name].append(codes.repeat(2, 1, 1, 1))
+                cache_c[name + "_s"].append(scale.float().repeat(2, 1, 1))
+    cache_c = {k: torch.stack(v) for k, v in cache_c.items()}
+    row = decode_run("llama3.2-3B decode_32k", wl_b, model, tree, cache_b,
+                     first_tok, P16_PROMPT, P16_STEPS)
+    row.update(fill)
+    log16("(b) decode", row)
+    check(row)
+    del cache_b, firsts
+    free()
+
+    # (c) the kvq variant at batch 16
+    wl_c = TWk.build_workload("llama3.2-3b", "decode_32k", variant="kvq",
+                              shape_changes={"batch": 16},
+                              cfg_changes=cut_layers)
+    row = decode_run("llama3.2-3B decode_32k kvq", wl_c,
+                     model.with_config(kv_quant=True), tree, cache_c,
+                     first_tok.repeat(2), P16_PROMPT, P16_KVQ_STEPS)
+    row["cache_fill"] = "(b)'s prefilled rows, _quantize_int8, twice"
+    log16("(c) decode kvq", row)
+    check(row)
+    del cache_c, model, tree
+    free()
+
+    # (d) deepseek-v3 decode_32k, full width, depth 4
+    deep_cut = {"n_layers": P12_DEEPSEEK_LAYERS}
+    reckoned = []
+    batch = 128
+    while True:
+        wl_d = TWk.build_workload(
+            "deepseek-v3-671b", "decode_32k", cfg_changes=deep_cut,
+            shape_changes={"batch": batch} if batch != 128 else None)
+        rk, _, rk_s = TDr.reckon(wl_d)
+        need = gb(t for t in leaves(wl_d.abstract_args)) + rk.peak_bytes / 1e9
+        reckoned.append({"batch": batch, "reckoned_peak_gb": need,
+                         "step_peak_gb": rk.peak_bytes / 1e9,
+                         "reckon_s": rk_s})
+        if need <= P16_PEAK_GB or batch == 1:
+            break
+        batch //= 2
+    torch.cuda.reset_peak_memory_stats()
+    deep, init_ms = _timed(torch, lambda: LT.init_params(
+        wl_d.cfg, gen(164), device=dev))
+    dtree = deep.tree()
+    cache_d = {k: torch.randn(v.shape, generator=gen(165), dtype=v.dtype,
+                              device=dev)
+               for k, v in wl_d.abstract_args[3].items()}
+    tok = torch.randint(0, wl_d.cfg.vocab, (batch,), generator=gen(166),
+                        device=dev, dtype=torch.int32)
+    row = decode_run("deepseek-v3 decode_32k", wl_d, deep, dtree, cache_d,
+                     tok, P16_PROMPT, P16_DEEPSEEK_STEPS)
+    row.update(weights_gb=gb(leaves(dtree)), init_ms=init_ms,
+               cache_fill="seeded random", reckoned=reckoned,
+               measured_peak_gb=peak_gb())
+    row["cuts"] = dict(row["cuts"], cache="seeded random")
+    log16("(d) decode", row)
+    check(row)
+    del deep, dtree, cache_d
+    free()
+    if counts() != launches_before:
+        raise RuntimeError("phase 16: a serving step launched a kernel of "
+                           "the port")
+    serve_s = time.perf_counter() - t16
+
+    # (f) the dry-run children started after the build
+    t0 = time.perf_counter()
+    rcs = []
+    for proc in dry["procs"]:
+        try:
+            rcs.append(proc.wait(timeout=max(
+                1.0, P16_DRYRUN_WAIT_S - (time.perf_counter() - t0))))
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"phase 16 (f): the dry-run still runs after "
+                               f"{P16_DRYRUN_WAIT_S} s more") from None
+    for log_f in dry["logs"]:
+        log_f.close()
+    waited_s = time.perf_counter() - t0
+    recs = [json.loads(p.read_text())
+            for p in sorted(dry["out"].glob("*/*.json"))]
+    status = dict(collections.Counter(r["status"] for r in recs))
+    for r in recs:
+        d = roofline.derive(r)
+        line = {"mesh": r["mesh"], "arch": r["arch"], "shape": r["shape"],
+                "status": r["status"]}
+        if r["status"] == "ok":
+            line.update(kind=r["kind"], dominant=d["dominant"],
+                        useful_flops_frac=d["useful_flops_frac"],
+                        temp_gb_per_device=r["memory_analysis"][
+                            "temp_size_in_bytes"] / 1e9,
+                        s=r["lower_s"] + r["compile_s"])
+        log(f"phase 16 (f) cell " + json.dumps(line))
+    row = {"case": "dryrun, both meshes", "rcs": rcs, "records": len(recs),
+           "status": status,
+           "since_start_s": time.perf_counter() - dry["t0"],
+           "waited_s": waited_s,
+           "reckon_s": sum(r.get("lower_s", 0) + r.get("compile_s", 0)
+                           for r in recs), "card": card}
+    log16("(f) dryrun", row)
+    if rcs != [0, 0] or len(recs) != 80 or \
+            status != {"ok": 72, "skipped": 8}:
+        tail = "".join(p.read_text()[-1500:]
+                       for p in sorted(dry["out"].glob("dryrun*.log")))
+        raise RuntimeError(f"phase 16 (f): {json.dumps(row)}\n{tail}")
+    phase16_s = time.perf_counter() - t16
+    log(f"phase 16: {phase16_s:.1f} s ((a)–(d) {serve_s:.1f} s)")
+    record["phase16"] = rows
+    record["phase16_s"] = phase16_s
+    return rows
+
+
+
 def main(argv) -> int:
     if argv:
         print(f"chip_smoke.py takes no arguments, got {argv}",
@@ -1138,6 +1614,9 @@ def main(argv) -> int:
               for op, ps, dts, ids, mode in level_units.values()]
     units.append(("fixed", build.fixed_source()))
     build.build_all(units)
+    # phase 16 (f)'s dry-run runs on the CPU beside phases 1–16
+    dry = start_dryrun(ROOT / "build" / "dryrun_torch")
+    phase16_rows = []
     names = [*rounds, *(f"level {k}" for k in level_units), "fixed"]
     builds = {name: round(build.BUILD_SECONDS.get(build.source_key(u[1]),
                                                   0.0), 3)
@@ -4731,6 +5210,7 @@ def main(argv) -> int:
 
     # (a) serve_p99, (b) serve_bulk
     bulk = None
+    served = {}             # phase 16 (e)'s inputs and direct outputs
     for shape in ("serve_p99", "serve_bulk"):
         nb = GC.RECSYS_SHAPES[shape]["batch"]
         b = GD.dlrm_batch(rm2, nb, seed=142, device=dev)
@@ -4740,6 +5220,7 @@ def main(argv) -> int:
         row["f64_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log14("serve", row)
         bulk = b
+        served[shape] = (b, out)
         del out
     # beside the events' device time, the profiler's busy time of the
     # same forward (the two disagree where the trace drops kernels)
@@ -4780,7 +5261,11 @@ def main(argv) -> int:
     if not (err <= 1e-5 and row["bitwise_repeat"] and row["finite"]
             and row["shape"] == [rshape["batch"], rshape["n_candidates"]]):
         raise RuntimeError(f"phase 14 retrieval: {json.dumps(row)}")
-    del rb, cand, scores, again, user, top
+    # phase 16 (e): the serving workloads' steps on this model and tables
+    phase16_rm2(torch, dlrm, served, (rb, cand, scores, user), card,
+                lambda tag, row: (log(f"phase 16 {tag} " + json.dumps(row)),
+                                  phase16_rows.append(dict(row, line=tag))))
+    del rb, cand, scores, again, user, top, served
 
     # (d) K = 8 multi-hot at B 65,536 over the same tables, then the bag
     # kernel on each table against the model's lookup
@@ -4873,6 +5358,8 @@ def main(argv) -> int:
 
     # Phase 15: training, after phase 14's memory is freed
     phase15(torch, dev, card, record, log, bits, reset_peak)
+    # Phase 16: the serving workloads at full width, the dry-run's records
+    phase16(torch, dev, card, record, log, dry, phase16_rows)
 
     # the contract's kernel line: times of the weighted-PageRank round with
     # every source active (the push− main path's shapes)
@@ -4975,4 +5462,8 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    try:
+        rc = main(sys.argv[1:])
+    finally:
+        stop_children()
+    sys.exit(rc)

@@ -60,9 +60,11 @@ def _sorted_segment(op: str, data, segment_ids, num_segments: int):
     """Deterministic float sum/prod of the rows of ``data``: stable sort by
     segment (skipped, with its copy of ``data``, where the ids are already
     sorted), then one ``segment_reduce`` along axis 0 over the contiguous
-    runs (empty segments read the identity)."""
+    runs (empty segments read the identity).  ``meta`` ids have no values
+    to test, so they take the sort, as unsorted ids would."""
     ids = segment_ids.long()
-    if ids.numel() > 1 and bool((ids[1:] < ids[:-1]).any()):
+    if ids.numel() > 1 and (ids.is_meta
+                            or bool((ids[1:] < ids[:-1]).any())):
         perm = torch.sort(ids, stable=True).indices
         ids, data = ids[perm], data[perm]
     bounds = torch.searchsorted(

@@ -1,40 +1,54 @@
-"""Per-(architecture × shape) training workloads of the port.
+"""Per-(architecture × shape) workloads of the port.
 
-The port of the training kinds of ``repro.launch.workloads``:
-``build_workload(arch, shape, mesh)`` returns a ``Workload`` whose
-``step_fn(params, opt_state, batch) → (params, opt_state, metrics)`` is
-the reference's train step (loss, gradients, AdamW; ``grad_fn(params,
-batch) → (loss, gradients)`` is its first half alone), with the abstract
-arguments as tensors on ``meta`` and the reference's ``meta`` bookkeeping
-(model FLOPs, token counts, ``n_micro``).
+The port of ``repro.launch.workloads``: ``build_workload(arch, shape,
+mesh)`` returns a ``Workload`` whose ``step_fn`` is the reference's step
+of the cell's kind, with the abstract arguments as tensors on ``meta`` in
+the reference's order, shapes and dtypes, and the reference's ``meta``
+bookkeeping (model FLOPs, token counts, ``n_micro``, ``n_candidates``):
+
+  * train: ``step_fn(params, opt_state, batch) → (params, opt_state,
+    metrics)``, the loss, its gradients and AdamW; ``grad_fn(params,
+    batch) → (loss, gradients)`` is its first half alone;
+  * prefill: ``step_fn(params, tokens, cache) → (logits, cache)``;
+  * decode: ``step_fn(params, token, pos, cache) → (logits, cache)``,
+    ``pos`` an int or a 0-dim tensor (one host read); ``variant="kvq"``
+    serves both LM kinds from the int8 cache;
+  * serve: ``step_fn(params, dense, sparse) → scores``;
+  * retrieval: ``step_fn(params, dense, sparse, cand) → scores``.
+
+``grad_fn`` is None for the serving kinds.
 
   * ``params`` is the model's parameter tree (``model.tree()``: nested
     dicts and lists of tensors); each step wraps it in the model (the
-    parameters share the tree's storage), takes the gradients with
-    autograd and updates the tree and ``opt_state`` in place, as the
-    reference's step donates them (a 3B-parameter model's state would
-    not fit twice on one card).  A fault raised before the update leaves
-    the state as it was; one raised during it is a
-    ``runtime.ft.PartialStepError``, which the FT driver answers with a
-    restore from the checkpoint, never a retry.
-  * The LM step splits the batch into the reference's ``n_micro``
+    parameters share the tree's storage).  The train step takes the
+    gradients with autograd and updates the tree and ``opt_state`` in
+    place, as the reference's step donates them (a 3B-parameter model's
+    state would not fit twice on one card); the LM serving steps write
+    the cache in place, as the reference's donate it.  A fault raised
+    before a train step's update leaves the state as it was; one raised
+    during it is a ``runtime.ft.PartialStepError``, which the FT driver
+    answers with a restore from the checkpoint, never a retry.
+  * The LM train step splits the batch into the reference's ``n_micro``
     micro-batches (strided: row i goes to micro-batch i mod n) and
     accumulates their gradients in float32, each cast then added, as the
     reference's scan does.
   * The GNN steps, and ``variant="dist"``'s vertex-cut step over a
     ``ShardMesh`` (its batch the k per-shard dicts of
-    ``data.graphs.shard_batch``), and DLRM's.  The vertex-cut loss is one
-    value on shard 0's device, so autograd gives the true gradient, the
-    single device's (the reference's ``psum`` inside its loss scales each
+    ``data.graphs.shard_batch``; a ``launch.mesh.MeshShape`` becomes k
+    shards on ``meta``), and DLRM's.  The vertex-cut loss is one value on
+    shard 0's device, so autograd gives the true gradient, the single
+    device's (the reference's ``psum`` inside its loss scales each
     shard's gradient by k; not copied).
+  * ``analysis=True`` is the reference's exact-FLOP build: an LM runs
+    one KV tile (``kv_chunk`` 2^30), ``loop_impl="unroll"``, no hint
+    axes and ``n_micro`` 1; a vertex-cut cell falls back to the single
+    device's step; DLRM is unchanged.
   * Every step runs with ``torch.use_deterministic_algorithms`` on, so
     the backward's gathers sum in a fixed order and a step repeats bit
-    for bit.
+    for bit; the serving steps run without autograd.
 
-The reference's sharding trees and ``donate`` have no counterpart; the
-serving kinds (prefill, decode, serve, retrieval) and ``analysis=True``
-belong to the dry-run's part of the port (ROADMAP Queue 1 item 12d) and
-raise ``NotImplementedError``.
+The reference's sharding trees, ``_cache_specs`` and ``donate`` have no
+counterpart (``seq_sharded`` changes nothing here).
 """
 from __future__ import annotations
 
@@ -46,6 +60,7 @@ from typing import Any, Callable, Optional
 import torch
 
 import repro_torch.configs as configs
+from repro_torch.graph.partition import ShardMesh
 from repro_torch.graph.sampler import max_nodes_for
 from repro_torch.launch.mesh import batch_axes, mesh_devices
 from repro_torch.models import dlrm as dlrm_mod
@@ -55,22 +70,21 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import leaves, unflatten
 
 F32, I32 = torch.float32, torch.int32
-_LATER = "ROADMAP Queue 1 item 12d"
 
 
 @dataclasses.dataclass
 class Workload:
     arch: str
     shape: str
-    kind: str                   # train (the serving kinds: item 12d)
+    kind: str                   # train | prefill | decode | serve | retrieval
     step_fn: Callable
-    # grad_fn(params, batch) → (loss, gradient tree): the step's first
-    # half, which leaves the state untouched
-    grad_fn: Callable
-    abstract_args: tuple        # (params, opt_state, batch) on "meta"
+    # grad_fn(params, batch) → (loss, gradient tree): a train step's
+    # first half, which leaves the state untouched (None when serving)
+    grad_fn: Optional[Callable]
+    abstract_args: tuple        # step_fn's arguments, on "meta"
     meta: dict
     cfg: Any                    # the model config the step runs
-    opt_cfg: AdamWConfig
+    opt_cfg: Optional[AdamWConfig]   # None when serving
 
 
 def _train(arch, shape_name, grad_fn, abstract_args, meta, cfg,
@@ -91,6 +105,18 @@ def _train(arch, shape_name, grad_fn, abstract_args, meta, cfg,
 
     return Workload(arch, shape_name, "train", train_step, grads_only,
                     abstract_args, meta, cfg, opt_cfg)
+
+
+def _serve(arch, shape_name, kind, step, abstract_args, meta,
+           cfg) -> Workload:
+    """The serving workload whose step is ``step``, run without autograd
+    under deterministic algorithms."""
+    def serve_step(*args):
+        with torch.no_grad(), deterministic():
+            return step(*args)
+
+    return Workload(arch, shape_name, kind, serve_step, None, abstract_args,
+                    meta, cfg, None)
 
 
 @contextlib.contextmanager
@@ -155,26 +181,74 @@ def n_micro_for(batch: int, seq: int, dp: int = 1, smoke: bool = False,
 
 
 def _lm_workload(arch: str, shape_name: str, shape: dict, mesh,
-                 smoke: bool, cfg_changes: dict) -> Workload:
+                 smoke: bool, analysis: bool, variant: str,
+                 cfg_changes: dict) -> Workload:
     entry = configs.get(arch)
     cfg = entry.smoke() if smoke else entry.full()
     dp = _dp(mesh)
     cfg = dataclasses.replace(
         cfg, hint_axes=tuple(mesh.axis_names) if mesh is not None else (),
-        moe_groups=dp, **cfg_changes)
+        moe_groups=dp)
+    kind = shape["kind"]
+    if variant == "kvq" and kind in ("decode", "prefill"):
+        cfg = dataclasses.replace(cfg, kv_quant=True)
+    if analysis:
+        # the reference's exact-FLOP build: one KV tile, unrolled loops,
+        # no sharding hints
+        cfg = dataclasses.replace(cfg, loop_impl="unroll",
+                                  kv_chunk=1 << 30, hint_axes=())
+    cfg = dataclasses.replace(cfg, **cfg_changes)
     seq, batch = shape["seq"], shape["batch"]
     if smoke:
         seq, batch = min(seq, 64), min(batch, 4)
     meta = {"params": cfg.param_count(),
             "active_params": cfg.active_param_count(),
-            "tokens": batch * seq, "seq": seq, "batch": batch}
+            "tokens": batch * seq if kind != "decode" else batch,
+            "seq": seq, "batch": batch}
+    params_abs = tf.init_params(cfg, None, device="meta").tree()
+    if kind == "train":
+        return _lm_train(arch, shape_name, cfg, params_abs, meta, batch,
+                         seq, n_micro_for(batch, seq, dp, smoke, analysis))
+
+    cache_abs = tf.TransformerLM(cfg, params_abs).init_cache(batch, seq)
+    if kind == "prefill":
+        def prefill_step(params, tokens, cache):
+            model = tf.TransformerLM(cfg, params)
+            return model.prefill(tokens.to(model.device), cache)
+
+        meta["model_flops"] = 2 * cfg.active_param_count() * batch * seq
+        return _serve(arch, shape_name, "prefill", prefill_step,
+                      (params_abs, _meta((batch, seq), I32), cache_abs),
+                      meta, cfg)
+
+    # decode: one new token against a seq-long cache
+    def decode_step(params, token, pos, cache):
+        model = tf.TransformerLM(cfg, params)
+        return model.decode_step(token.to(model.device), _host_pos(pos),
+                                 cache)
+
+    meta["model_flops"] = 2 * cfg.active_param_count() * batch
+    return _serve(arch, shape_name, "decode", decode_step,
+                  (params_abs, _meta((batch,), I32), _meta((), I32),
+                   cache_abs), meta, cfg)
+
+
+def _host_pos(pos) -> int:
+    """The decode position as a host int: an int as it is, a 0-dim tensor
+    read once; a ``meta`` tensor has no value and gives 0 (slot 0: no
+    shape or count depends on it)."""
+    if not isinstance(pos, torch.Tensor):
+        return int(pos)
+    return 0 if pos.is_meta else int(pos)
+
+
+def _lm_train(arch, shape_name, cfg, params_abs, meta, batch: int,
+              seq: int, n_micro: int) -> Workload:
     opt_cfg = AdamWConfig(
         state_dtype="bfloat16" if cfg.param_count() > 1e11 else "float32")
-    params_abs = tf.init_params(cfg, None, device="meta").tree()
     opt_abs = adamw_init(opt_cfg, params_abs)
     batch_abs = {"tokens": _meta((batch, seq), I32),
                  "targets": _meta((batch, seq), I32)}
-    n_micro = n_micro_for(batch, seq, dp, smoke)
     meta["n_micro"] = n_micro
 
     def grad_fn(params, b):
@@ -302,7 +376,7 @@ def _gnn_dist_workload(arch, shape_name, shape, mesh, smoke,
 
     flat = {key: torch.empty((k * v.shape[0],) + v.shape[1:], dtype=v.dtype,
                              device="meta") for key, v in shard.items()}
-    meta = {"n": n, "e": e, "variant": "dist", "shards": k,
+    meta = {"n": n, "e": e, "variant": "dist",
             "model_flops": _gnn_model_flops(kind, cfg, n, e, flat)}
     return _train(arch, shape_name, grad_fn,
                   (params_abs, opt_abs, batch_abs), meta, cfg, opt_cfg)
@@ -377,26 +451,54 @@ def _dlrm_workload(arch: str, shape_name: str, shape: dict, mesh,
     if smoke:
         batch = min(batch, 32)
     meta = {"params": cfg.param_count(), "batch": batch}
-    if shape["kind"] != "train":
-        raise NotImplementedError(
-            f"{arch} {shape_name}: the {shape['kind']} kind of "
-            f"build_workload comes with {_LATER}")
-    opt_cfg = AdamWConfig()
     params_abs = dlrm_mod.dlrm_init(cfg, None, device="meta").tree()
-    opt_abs = adamw_init(opt_cfg, params_abs)
     sparse = (batch, cfg.n_sparse) if cfg.multi_hot == 1 else \
         (batch, cfg.n_sparse, cfg.multi_hot)
-    batch_abs = {"dense": _meta((batch, cfg.n_dense), F32),
-                 "sparse": _meta(sparse, I32), "label": _meta((batch,), F32)}
+    dense_abs = _meta((batch, cfg.n_dense), F32)
+    sparse_abs = _meta(sparse, I32)
 
-    def grad_fn(params, b):
-        model = dlrm_mod.DLRM(cfg, params).trainable()
-        loss = model.loss(_batch_on(b, model.device))
-        return loss, _grads(loss, model)
+    if shape["kind"] == "train":
+        opt_cfg = AdamWConfig()
+        opt_abs = adamw_init(opt_cfg, params_abs)
+        batch_abs = {"dense": dense_abs, "sparse": sparse_abs,
+                     "label": _meta((batch,), F32)}
 
-    meta["model_flops"] = 3 * batch * _dlrm_dense_flops(cfg)
-    return _train(arch, shape_name, grad_fn,
-                  (params_abs, opt_abs, batch_abs), meta, cfg, opt_cfg)
+        def grad_fn(params, b):
+            model = dlrm_mod.DLRM(cfg, params).trainable()
+            loss = model.loss(_batch_on(b, model.device))
+            return loss, _grads(loss, model)
+
+        meta["model_flops"] = 3 * batch * _dlrm_dense_flops(cfg)
+        return _train(arch, shape_name, grad_fn,
+                      (params_abs, opt_abs, batch_abs), meta, cfg, opt_cfg)
+
+    if shape["kind"] == "serve":
+        def serve_step(params, dense, sparse):
+            model = dlrm_mod.DLRM(cfg, params)
+            dev = model.device
+            return model(dense.to(dev), sparse.to(dev))
+
+        meta["model_flops"] = batch * _dlrm_dense_flops(cfg)
+        return _serve(arch, shape_name, "serve", serve_step,
+                      (params_abs, dense_abs, sparse_abs), meta, cfg)
+
+    # retrieval: score batch × n_candidates with one product
+    nc = shape["n_candidates"]
+    if smoke:
+        nc = min(nc, 1024)
+
+    def retrieval_step(params, dense, sparse, cand):
+        model = dlrm_mod.DLRM(cfg, params)
+        dev = model.device
+        return model.retrieval_scores(dense.to(dev), sparse.to(dev),
+                                      cand.to(dev))
+
+    meta["model_flops"] = 2 * batch * nc * cfg.embed_dim \
+        + batch * _dlrm_dense_flops(cfg)
+    meta["n_candidates"] = nc
+    return _serve(arch, shape_name, "retrieval", retrieval_step,
+                  (params_abs, dense_abs, sparse_abs,
+                   _meta((nc, cfg.embed_dim), F32)), meta, cfg)
 
 
 def _dlrm_dense_flops(cfg) -> float:
@@ -416,28 +518,29 @@ def build_workload(arch: str, shape_name: str, mesh=None,
                    variant: str = "baseline",
                    shape_changes: Optional[dict] = None,
                    cfg_changes: Optional[dict] = None) -> Workload:
-    """The training workload of (``arch``, ``shape_name``) on ``mesh`` (a
-    ``ShardMesh``, or None for one device).  ``shape_changes`` cuts the
-    shape (e.g. ``{"batch": 4}``) and ``cfg_changes`` replaces config
-    fields (e.g. ``{"n_layers": 4}``, DLRM's ``{"vocab": …}``) before the
-    workload is built; the reference's rules (``n_micro``, the smoke caps)
-    apply to the cut shape, and ``meta["cuts"]`` lists the cuts."""
-    if analysis:
-        raise NotImplementedError(
-            f"analysis=True (the dry-run's lowering) comes with {_LATER}")
+    """The workload of (``arch``, ``shape_name``) on ``mesh``: None for
+    one device, a ``launch.mesh.MeshShape`` (``model_mesh``: its batch
+    axes give ``n_micro`` and ``moe_groups``) or a ``ShardMesh``.  A
+    vertex-cut cell (``variant="dist"``, MGN or EGNN) runs over a
+    ``ShardMesh``; a ``MeshShape`` becomes ``ShardMesh.on("meta", k)``
+    of its k devices.  ``shape_changes`` cuts the shape (e.g. ``{"batch":
+    4}``) and ``cfg_changes`` replaces config fields (e.g. ``{"n_layers":
+    4}``, DLRM's ``{"vocab": …}``) before the workload is built; the
+    reference's rules (``n_micro``, the smoke caps) apply to the cut
+    shape, and ``meta["cuts"]`` lists the cuts."""
     entry = configs.get(arch)
     shape = dict(entry.shapes[shape_name], **(shape_changes or {}))
     changes = dict(cfg_changes or {})
     if entry.family == "lm":
-        if shape["kind"] != "train":
-            raise NotImplementedError(
-                f"{arch} {shape_name}: the {shape['kind']} kind of "
-                f"build_workload comes with {_LATER}")
-        wl = _lm_workload(arch, shape_name, shape, mesh, smoke, changes)
+        wl = _lm_workload(arch, shape_name, shape, mesh, smoke, analysis,
+                          variant, changes)
     elif entry.family == "gnn":
-        if variant == "dist" and entry.kind in ("mgn", "egnn"):
+        if variant == "dist" and entry.kind in ("mgn", "egnn") \
+                and not analysis:
             if mesh is None:
-                raise ValueError("the vertex-cut step needs a ShardMesh")
+                raise ValueError("the vertex-cut step needs a mesh")
+            if not isinstance(mesh, ShardMesh):
+                mesh = ShardMesh.on("meta", mesh_devices(mesh))
             wl = _gnn_dist_workload(arch, shape_name, shape, mesh, smoke,
                                     changes)
         else:

@@ -310,7 +310,11 @@ def _real_edges(emask, *per_edge) -> list:
     mask is a prefix (``dst_block_partition``'s layout), else one gather.
     A padding edge carries no message (the reference masks it), so the
     vertex-cut forwards drop the pads up front; kept, every pad would join
-    destination 0's segment and make it the longest by far."""
+    destination 0's segment and make it the longest by far.  A ``meta``
+    mask has no values to read, so every edge slot is kept (the shapes of
+    a shard whose slots all hold real edges)."""
+    if emask.is_meta:
+        return list(per_edge)
     m = int(emask.sum())
     if bool(emask[:m].all()):
         return [a[:m] for a in per_edge]

@@ -2052,3 +2052,88 @@ def test_train_main_smoke_on_card(cuda_device, arch, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from step 2" in out and "retries=0" in out
     assert f"[train] arch={arch} shape={_TRAIN[arch]} steps=3" in out
+
+
+# ---------------------------------------------------------------------------
+# The serving kinds of launch/workloads.py on the card
+# ---------------------------------------------------------------------------
+
+_SERVE_CELLS = [("llama3.2-3b", "prefill_32k", "baseline"),
+                ("llama3.2-3b", "decode_32k", "baseline"),
+                ("llama3.2-3b", "decode_32k", "kvq"),
+                ("deepseek-v3-671b", "decode_32k", "baseline"),
+                ("llama4-maverick-400b-a17b", "decode_32k", "baseline"),
+                ("dlrm-rm2", "serve_p99", "baseline"),
+                ("dlrm-rm2", "retrieval_cand", "baseline")]
+
+
+def _serve_inputs(wl, seed):
+    """The step's arguments after the parameters, on the CPU, made from a
+    numpy seed at the abstract arguments' shapes and dtypes: token ids
+    and sparse ids in range (``cfg.vocab``), a decode cache filled (int8 codes in
+    [-127, 127], scales |N|/127 + 1e-3), a prefill cache zero, ``pos`` 40
+    as a 0-dim tensor."""
+    rng = np.random.default_rng(seed)
+    vocab = getattr(wl.cfg, "vocab", None)
+    out = []
+    for a in wl.abstract_args[1:]:
+        if isinstance(a, dict):
+            cache = {}
+            for k, v in a.items():
+                if wl.kind == "prefill":
+                    x = np.zeros(v.shape, np.float32)
+                elif v.dtype == torch.int8:
+                    x = rng.integers(-127, 128, v.shape)
+                elif k.endswith("_s"):
+                    x = np.abs(rng.normal(size=v.shape)) / 127 + 1e-3
+                else:
+                    x = rng.normal(size=v.shape)
+                cache[k] = torch.from_numpy(np.asarray(x)).to(v.dtype)
+            out.append(cache)
+        elif a.dim() == 0:
+            out.append(torch.tensor(40, dtype=a.dtype))
+        elif a.dtype == torch.int32:
+            out.append(torch.from_numpy(rng.integers(
+                0, vocab, a.shape).astype(np.int32)))
+        else:
+            out.append(torch.from_numpy(rng.normal(size=a.shape).astype(
+                np.float32)))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,shape,variant", _SERVE_CELLS)
+def test_serving_workloads_on_card_match_cpu(cuda_device, arch, shape,
+                                             variant, monkeypatch):
+    """``build_workload(...).step_fn`` of each serving kind at smoke on the
+    card against the same step on the CPU with the same weights and
+    inputs: logits, scores and the written cache allclose 1e-4 (full
+    float32 products, TF32 off; int8 codes within one step), and two runs
+    on the card from copies of the same cache bitwise equal."""
+    import repro_torch.configs as TCF
+    from repro_torch.launch import workloads as TW
+    from repro_torch.models import dlrm as TDL
+    from repro_torch.models import transformer as TLM
+    from repro_torch.tree import leaves, tree_map
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    wl = TW.build_workload(arch, shape, None, smoke=True, variant=variant)
+    gen = torch.Generator().manual_seed(9)
+    if TCF.get(arch).family == "lm":
+        tree = TLM.init_params(wl.cfg, gen, device="cpu").tree()
+    else:
+        tree = TDL.dlrm_init(wl.cfg, gen, device="cpu").tree()
+    args = _serve_inputs(wl, 10)
+    card_tree = tree_map(lambda t: t.to(cuda_device), tree)
+    runs = []
+    for _ in range(2):
+        card_args = tree_map(lambda t: t.to(cuda_device), args)
+        runs.append(wl.step_fn(card_tree, *card_args))
+    cpu = wl.step_fn(tree, *tree_map(torch.clone, args))
+    a, b = (leaves(r) for r in runs)
+    for x, y, w in zip(a, b, leaves(cpu)):
+        assert x.device.type == "cuda"
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+        if x.dtype == torch.int8:
+            assert int((x.cpu().int() - w.int()).abs().max()) <= 1
+        else:
+            torch.testing.assert_close(x.cpu(), w, rtol=1e-4, atol=1e-4)

@@ -2,9 +2,9 @@
 package (nor chip_smoke.py, nor the port's quickstart) imports ``jax`` or
 the JAX package ``repro``.  Both tests walk every file under
 ``src/repro_torch/``, ``launch/``, ``models/``, ``configs/`` and ``data/``
-included (the LM serving path's, the GNNs', DLRM's and the training
-path's files are checked to be among them, and the training example with
-chip_smoke.py).
+included (the LM serving path's, the GNNs', DLRM's, the training path's
+and the model cells' dry-run's files are checked to be among them, and
+the training example with chip_smoke.py).
 ``launch.analytics`` needs no guard at import time, since its
 ``--dryrun`` runs the port's own ``repro_torch.launch.analytics_dryrun``,
 never the reference's."""
@@ -64,6 +64,10 @@ TRAIN_FILES = ["optim/__init__.py", "optim/adamw.py", "optim/compress.py",
                "tree.py", "data/tokens.py", "runtime/ft.py",
                "launch/workloads.py", "launch/train.py",
                "checkpoint/ckpt.py"]
+# The model cells' dry-run and the files it changed.
+DRYRUN_FILES = ["launch/dryrun.py", "launch/mesh.py", "launch/workloads.py",
+                "launch/analytics_dryrun.py", "graph/segment.py",
+                "models/gnn.py"]
 
 
 def test_no_jax_or_reference_imports_in_sources():
@@ -71,7 +75,7 @@ def test_no_jax_or_reference_imports_in_sources():
         ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
         ROOT / "examples" / "train_gnn_torch.py"]
     assert {PKG / f for f in LM_FILES + GNN_FILES + DLRM_FILES
-            + TRAIN_FILES} <= set(files)
+            + TRAIN_FILES + DRYRUN_FILES} <= set(files)
     bad = []
     for f in files:
         for m in _BAD.finditer(f.read_text()):
@@ -113,6 +117,25 @@ def test_partition_imports_first_without_cycle():
         print("ok")
     """)
     _run_each(first)
+
+
+def test_dryrun_imports_first_without_cycle():
+    """``launch.dryrun`` (which now imports the workloads and the model
+    mesh) and ``launch.analytics_dryrun`` (which imports it) each import
+    first, on their own, with no cycle."""
+    first = textwrap.dedent("""
+        from repro_torch.launch import dryrun
+        from repro_torch.launch import workloads
+        assert dryrun.build_workload is workloads.build_workload
+        print("ok")
+    """)
+    analytics = textwrap.dedent("""
+        from repro_torch.launch import analytics_dryrun
+        from repro_torch.launch import dryrun
+        assert analytics_dryrun.Reckoner is dryrun.Reckoner
+        print("ok")
+    """)
+    _run_each(first, analytics)
 
 
 def _run_each(*codes):

@@ -496,12 +496,19 @@ def test_build_workload_kinds_and_cuts():
     assert wl.meta["model_flops"] == 6 * wl.cfg.param_count() * 4 * 4096
     assert all(t.device.type == "meta" for t in leaves(wl.abstract_args))
     assert TW.n_micro_for(256, 4096) == 128
-    for arch, shape in (("llama3.2-3b", "decode_32k"),
-                        ("dlrm-rm2", "serve_p99")):
-        with pytest.raises(NotImplementedError, match="12d"):
-            TW.build_workload(arch, shape, None, smoke=True)
-    with pytest.raises(NotImplementedError, match="12d"):
-        TW.build_workload("gat-cora", "full_graph_sm", None, analysis=True)
+    # the serving kinds and analysis=True build (their steps are held in
+    # tests/test_torch_workloads_serve.py and test_torch_dryrun_cells.py)
+    for arch, shape, kind in (("llama3.2-3b", "decode_32k", "decode"),
+                              ("dlrm-rm2", "serve_p99", "serve")):
+        served = TW.build_workload(arch, shape, None, smoke=True)
+        assert served.kind == kind and served.grad_fn is None
+    cut = TW.build_workload("llama3.2-3b", "prefill_32k", None,
+                            shape_changes={"batch": 2},
+                            cfg_changes={"n_layers": 4})
+    assert cut.meta["cuts"] == {"batch": [32, 2], "n_layers": 4}
+    assert cut.meta["tokens"] == 2 * 32768 and cut.cfg.n_layers == 4
+    an = TW.build_workload("gat-cora", "full_graph_sm", None, analysis=True)
+    assert an.kind == "train"
     assert TW.all_cells() == RW.all_cells()
     ref = RW.build_workload("gat-cora", "full_graph_sm", _host_mesh(),
                             smoke=True)
