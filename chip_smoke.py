@@ -63,7 +63,12 @@ libraries at once, into ``build/repro_torch/``), and then
      plain version; each case line also gives the walk's grid, the most
      non-empty tiles one row tile holds and the cell buffer's bytes;
    - ``ops.ell_softmax`` over both in-layouts with their masks, within
-     1e-6;
+     1e-6 and every masked slot exactly 0; its bound counts the bytes the
+     work needs (``segment_softmax.ell_softmax_bytes``: each slot's mask
+     byte and output, each real slot's score), the all-slot count beside
+     it; the case line also gives the kernel's registers and spills and,
+     as a yardstick, ``torch.softmax`` of a ``masked_fill`` (two calls,
+     NaN on an empty row);
    - ``ops.embedding_bag`` on one DLRM RM2 table (4,000,000 × 64,
      ``configs/dlrm_rm2.py``) for 65,536 bags of K = 1 and K = 8, sum, mean
      and weighted, and a bfloat16 table, bitwise; each case line names the
@@ -2234,15 +2239,42 @@ def main(argv) -> int:
                 best0 = ER.ell_level_reduce(e, op, ps, st, ids, active, ones)
 
     def softmax_case(label, g):
-        """ell_softmax over ``g``'s in-layout with its real mask."""
+        """ell_softmax over ``g``'s in-layout with its real mask.  The bound
+        counts the bytes the work needs: each slot's mask byte and output,
+        and the score of each real slot only; beside it the all-slot count
+        (every score read).  The yardstick beside the kernel is the nearest
+        library route, two calls that give NaN on an empty row (so not the
+        same function, and not ``library_ms``)."""
         e = TS.blocked_ell_cached(g, direction="in")
         gen = torch.Generator(device=dev).manual_seed(30)
         scores = torch.randn(tuple(e.mask.shape), generator=gen,
                              device=dev).mul_(5.0)
+        all_slots = scores.numel() * (4 + 1 + 4)
         # weights lie in [0, 1]: 1e-6 is a few float32 steps at 1
-        entry_case("softmax", label, lambda: KO.ell_softmax(scores, e.mask),
-                   lambda: SS._softmax_plain(scores, e.mask), (0.0, 1e-6),
-                   scores.numel() * (4 + 1 + 4), reps=10, plain_reps=1)
+        case = entry_case(
+            "softmax", label, lambda: KO.ell_softmax(scores, e.mask),
+            lambda: SS._softmax_plain(scores, e.mask), (0.0, 1e-6),
+            SS.ell_softmax_bytes(e.mask, scores.dtype), reps=10,
+            plain_reps=1,
+            detail={"real_slots": int(e.mask.sum()),
+                    "bytes_all_slots": all_slots,
+                    "bound_all_slots_ms": all_slots / HBM_BYTES_PER_S * 1e3,
+                    **SS.kernel_attributes(scores.dtype)})
+        got = KO.ell_softmax(scores, e.mask)
+        # real slots set to 0: anything left (NaN included) is a masked
+        # slot that is not exactly 0
+        case["masked_exact_0"] = int(got.masked_fill_(e.mask, 0)
+                                     .count_nonzero()) == 0
+        del got
+        case["yardstick"] = ("torch.softmax(scores.masked_fill(~mask, -inf), "
+                             "1): two calls, NaN on an empty row")
+        case["yardstick_ms"] = library_ms(lambda: torch.softmax(
+            scores.masked_fill(~e.mask, -inf), 1), 10)
+        log("softmax yardstick " + json.dumps(
+            {k: case[k] for k in ("case", "ms", "bound_ms", "yardstick",
+                                  "yardstick_ms", "masked_exact_0")}))
+        if not case["masked_exact_0"]:
+            raise RuntimeError(f"softmax {label}: a masked slot is not 0")
         del scores
 
     n16, e16 = 65536, 1048576
@@ -4888,6 +4920,11 @@ def main(argv) -> int:
             "slots_placed": placed,
             "ms_per_head": statistics.median(kernel_ms),
             "ms_all_heads": sum(kernel_ms),
+            # a head's bound: the bytes it needs, and every slot's
+            "bound_ms_per_head": SS.ell_softmax_bytes(mask, scores.dtype)
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_all_slots_ms_per_head": mask.numel() * (4 + 1 + 4)
+            / HBM_BYTES_PER_S * 1e3,
             "model_softmax_ms": model_ms, "card": card}
         log13("ell_softmax on GAT's logits", softmax_check)
         if worst > 1.0 or not placed:
@@ -5426,7 +5463,10 @@ def main(argv) -> int:
             **{key: c[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms", "cuda_core_bound_ms",
-                                       "bound_all_slots_ms")
+                                       "bound_all_slots_ms", "yardstick_ms",
+                                       "registers", "local_bytes",
+                                       "narrow_registers",
+                                       "narrow_local_bytes")
                if key in c},
             "case": label})
     # no model path launches flash; phase 12's check of it on the LM's
@@ -5439,7 +5479,8 @@ def main(argv) -> int:
     (softmax_row,) = [k for k in kernels if k["name"] == "softmax_kernel"]
     softmax_row["model_check"] = {k: softmax_check[k] for k in (
         "case", "max_abs_err", "worst_over_limit", "tolerance",
-        "ms_per_head", "ms_all_heads", "model_softmax_ms")}
+        "ms_per_head", "ms_all_heads", "bound_ms_per_head",
+        "bound_all_slots_ms_per_head", "model_softmax_ms")}
     # nor the bag: phase 14's check of it on DLRM's own tables and ids
     (bag_row,) = [k for k in kernels if k["name"] == "bag_kernel"]
     bag_row["model_check"] = {k: bag_check[k] for k in (

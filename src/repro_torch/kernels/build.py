@@ -141,7 +141,8 @@ def _declare_fixed(lib):
                                         i32, i32, i32, vp]
     lib.grafs_ell_softmax.argtypes = [vp, vp, vp, i64, i64, i32, vp]
     flash = (lib.grafs_flash_sm90, lib.grafs_flash_3xtf32)
-    attributes = (lib.grafs_flash_sm90_attributes,
+    attributes = (lib.grafs_ell_softmax_attributes,
+                  lib.grafs_flash_sm90_attributes,
                   lib.grafs_flash_3xtf32_attributes)
     for fn in flash:
         fn.argtypes = [vp] * 4 + [i32] * 8 + [_F32, vp]

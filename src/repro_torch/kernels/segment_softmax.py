@@ -7,14 +7,21 @@ scores' dtype, each real row summing to 1, masked slots exactly 0 and an
 empty row all zeros.  One kernel (``csrc/segment_softmax.cu``) replaces
 both Pallas passes (``_stats_kernel``, ``_norm_kernel``): one warp per row
 runs the online max/sum-exp pass over the row's slots, then the
-normalising pass.  Arithmetic is float32.  Kernel and plain version sum in
+normalising pass.  Where the width is a multiple of a 16-byte chunk (4
+float32 or 8 bfloat16 slots) a lane takes whole chunks and reads a chunk's
+scores only where a slot of it is real; other widths take a scalar path, a
+slot a lane.  Arithmetic is float32.  Kernel and plain version sum in
 different orders and are held to a tolerance, not bitwise.
 
 ``ell_softmax`` launches the kernel for CUDA tensors (checking device,
-dtype, shape and contiguity, and the launch status) and counts the launch
-in ``LAUNCHES``; for CPU tensors it runs the plain version.
+dtype, shape, contiguity and 16-byte alignment, and the launch status) and
+counts the launch in ``LAUNCHES``; for CPU tensors it runs the plain
+version.  ``ell_softmax_bytes`` counts the bytes a call needs, the
+kernel's bound.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -54,6 +61,28 @@ def ell_softmax(scores, mask):
     raise_on(status, "ell_softmax")
     LAUNCHES["softmax"] += 1
     return out
+
+
+def ell_softmax_bytes(mask, dtype) -> int:
+    """The bytes one ``ell_softmax`` of ``dtype`` scores over ``mask`` needs,
+    each read or written once: every slot's mask byte and output, and the
+    score of each real slot only (a masked slot's output is 0 whatever its
+    score)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return mask.numel() * (1 + itemsize) + int(mask.sum()) * itemsize
+
+
+def kernel_attributes(dtype) -> dict:
+    """The compiled kernels for ``dtype`` scores: registers and local
+    (spill) bytes per thread of the unrolled one (rows wider than 32
+    16-byte chunks) and of the narrow one (``cudaFuncGetAttributes``; needs
+    the card)."""
+    from repro_torch.kernels import build
+    attrs = (ctypes.c_int * 4)()
+    raise_on(build.fixed_library().grafs_ell_softmax_attributes(
+        _DTYPES[dtype], attrs), "ell_softmax attributes")
+    return {"registers": attrs[0], "local_bytes": attrs[1],
+            "narrow_registers": attrs[2], "narrow_local_bytes": attrs[3]}
 
 
 def _softmax_plain(scores, mask):

@@ -596,6 +596,65 @@ def test_ell_softmax_kernel_matches_plain_on_card(cuda_device, dtype):
                                    atol=1e-6)
 
 
+def _softmax_branch_case(dev, dtype, width, n_rows=37):
+    """Scores and a mask that reach every branch of the softmax kernel:
+    rows of mixed densities with a random (non-prefix) mask, so whole
+    16-byte chunks are masked, partly real or all real; row 0 all masked;
+    row 1 real on its last slot only; row 2 all real; inf, -inf and NaN in
+    a third of the masked slots."""
+    rng = np.random.default_rng(width)
+    density = rng.choice([0.0, 0.002, 0.05, 0.5, 1.0], size=(n_rows, 1))
+    mask = rng.random((n_rows, width)) < density
+    mask[0] = False
+    mask[1] = False
+    mask[1, -1] = True
+    mask[2] = True
+    scores = rng.normal(size=(n_rows, width)).astype(np.float32)
+    plant = ~mask & (rng.random((n_rows, width)) < 1 / 3)
+    scores[plant] = rng.choice(np.array([np.inf, -np.inf, np.nan],
+                                        np.float32), size=int(plant.sum()))
+    return (torch.from_numpy(scores).to(dev, dtype),
+            torch.from_numpy(mask).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [1, 16, 20, 130, 6272, 20000])
+def test_ell_softmax_kernel_branches_on_card(cuda_device, dtype, width):
+    """Widths off (1, 130) and on (16, 6272, 20000) the kernel's 16-byte
+    path (20 is on it in float32 and off it in bfloat16, whose chunk is 8
+    slots; 20000 has more than the 64 chunks a lane whose liveness pass 1
+    keeps), 37 rows (not a multiple of the 8 rows a block), at two score
+    scales:
+    exactly one launch a call, every masked slot exactly 0 (inf and NaN
+    there never reach the row), every output finite, the lone last slot's
+    weight 1, and the plain version's values at the existing tolerance."""
+    scores, mask = _softmax_branch_case(cuda_device, dtype, width)
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    for scale in (5.0, 1e4):
+        s = scores * scale
+        TSS.reset_launches()
+        got = TSS.ell_softmax(s, mask)
+        torch.cuda.synchronize()
+        assert TSS.LAUNCHES["softmax"] == 1
+        assert got.dtype == dtype and got.shape == s.shape
+        assert bool((got[~mask] == 0).all())
+        assert bool(torch.isfinite(got).all())
+        assert float(got[1, -1]) == 1.0
+        want = TSS._softmax_plain(s, mask)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_softmax_kernel_attributes_on_card(cuda_device, dtype):
+    attrs = TSS.kernel_attributes(dtype)
+    for kernel in ("", "narrow_"):
+        assert 0 < attrs[kernel + "registers"] <= 255
+        assert attrs[kernel + "local_bytes"] >= 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", [1, 8])
