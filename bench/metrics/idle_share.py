@@ -1,0 +1,9 @@
+"""Share of the traced window with no operation on the device, in
+percent."""
+
+
+def read(run):
+    t = run.trace
+    if not t or t["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
